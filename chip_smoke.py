@@ -1,21 +1,29 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the smoke run
+    python3 chip_smoke.py --profile    # plus a torch.profiler window over one
+                                       # warm benzene run (device time by kernel)
 
-Builds both hand-written kernels from ``qchem_rs_tpu_torch/csrc``, holds
-each against its plain PyTorch twin on the card, runs the port's in-core
-RHF on water/cc-pVDZ and on benzene/cc-pVDZ (the headline configuration:
-diag_rms 1e-8), checks the energies against their anchors, shows that the
-benzene run went through both kernels, and times each kernel against its
-twin at the benzene shapes. Every phase fails loudly; the script exits
-non-zero on any failed check and when CUDA is not available. The last line
-is a JSON object naming the device.
+Builds both hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
+nvcc process started together) and prints ptxas's registers, stack frame
+and spills for every instantiation; holds each kernel against its plain
+PyTorch twin on the card (kernel 1 for all 25 (Lb, Lk) with ragged
+primitive counts, its Boys function against ``boys``, kernel 2 at m = 150,
+14400 and 14401); runs the port's in-core RHF on water/cc-pVDZ and on
+benzene/cc-pVDZ (the headline configuration: diag_rms 1e-8), checks the
+energies against their anchors, shows that the benzene run went through
+both kernels, and times each kernel against its twin, its bound and the
+library call at the benzene shapes. Every phase fails loudly; the script
+exits non-zero on any failed check and when CUDA is not available. The
+line before the last is a JSON object with one entry per kernel; the last
+line is a JSON object naming the device.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -26,8 +34,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WATER_E = -76.02713907  # water/cc-pVDZ fixed point (diag_rms 1e-10, JAX package on CPU)
 BENZENE_E = -230.72299497  # benzene/cc-pVDZ (diag_rms 1e-8, JAX package; noisy to ~1e-7)
+BENZENE_E_CARD = -230.7229951380  # the port's benzene/cc-pVDZ value on an H100
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
+BOYS_RTOL = 1e-14
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP64
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOP_PER_S = 34e12
 
 
 def fail(msg: str) -> None:
@@ -55,33 +69,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_kernel1(eri_kernel, ncart, nhermite) -> float:
-    """Kernel 1 against its twin for every (Lb, Lk) in {0..4}^2, random inputs
-    made with numpy, two tiles per call at distinct offsets."""
+def print_ptxas(kernel) -> None:
+    """Registers, stack frame and spills of every function in a build's
+    ptxas report, and the wall time of each nvcc process."""
+    name = None
+    for line in kernel.ptxas_report.splitlines():
+        if line.startswith("# nvcc "):
+            print(line[2:], flush=True)
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            args = ",".join(re.findall(r"Li(\d+)E", mangled))
+            base = re.search(r"(eri_bra_tiles_kernel|boys_probe_kernel|fock_matvec_kernel)", mangled)
+            name = f"{base.group(1) if base else mangled}<{args}>"
+            continue
+        if name and ("stack frame" in line or "Used" in line):
+            print(f"ptxas {kernel.source} {name}: {line.replace('ptxas info    :', '').strip()}",
+                  flush=True)
+
+
+def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: int, T2: int):
+    """Random bra and ket classes of two tile blocks each, with zero-E
+    primitive pairs interleaved (counts 1..a, one bra pair all zero),
+    compacted as the engine compacts them, on the card."""
+    from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
+
+    N1, N2 = 2 * T1, 2 * T2
+    E1 = rng.standard_normal((N1, a, A, nhermite(Lb)))
+    E2 = rng.standard_normal((N2, c, 1, 1))
+    for E, n in ((E1, a), (E2, c)):
+        for i in range(E.shape[0]):
+            keep = rng.integers(1, n + 1)
+            E[i, rng.permutation(n)[: n - keep]] = 0.0
+    E1[-1] = 0.0
+    host1 = (E1, rng.uniform(0.3, 8.0, (N1, a)), rng.standard_normal((N1, a, 3)) * 1.5)
+    host2 = (E2, rng.uniform(0.3, 8.0, (N2, c)), rng.standard_normal((N2, c, 3)) * 1.5)
+    E1, p1, P1 = eri_kernel.compact_prims(*(torch.tensor(x, device="cuda") for x in host1))
+    E2, p2, P2 = eri_kernel.compact_prims(*(torch.tensor(x, device="cuda") for x in host2))
+    return (E1, p1, P1, p2, P2), eri_kernel.prim_counts(E1, T1), eri_kernel.prim_counts(E2, T2)
+
+
+def check_kernel1(eri_kernel, ncart) -> float:
+    """Kernel 1 against its twin for every (Lb, Lk) in {0..4}^2 with ragged
+    primitive counts, at the benzene tile edge (32), three tiles per call."""
     rng = np.random.default_rng(7)
-    prims = [9, 4, 2, 1, 1]
+    prims = [9, 4, 3, 2, 1]
     worst_abs = 0.0
     for Lb in range(5):
         for Lk in range(5):
-            a, c = prims[Lb], prims[Lk]
-            T1 = 16 if Lb == 0 else 8
-            T2 = 32 if Lk == 0 else (16 if Lk == 1 else 8)
-            A, S1 = ncart(Lb), nhermite(Lb)
-            N1, N2 = 2 * T1, 2 * T2
-            host = [
-                rng.standard_normal((N1, a, A, S1)),
-                rng.uniform(0.3, 8.0, (N1, a)),
-                rng.standard_normal((N1, a, 3)) * 1.5,
-                rng.uniform(0.3, 8.0, (N2, c)),
-                rng.standard_normal((N2, c, 3)) * 1.5,
-            ]
-            dev = [torch.tensor(x, device="cuda") for x in host]
-            ti, tj = np.array([0, T1]), np.array([T2, 0])
-            out = eri_kernel.bra_tiles(Lb, Lk, *dev, ti, tj, T1, T2)
-            ref = eri_kernel.bra_tiles_plain(Lb, Lk, *dev, ti, tj, T1, T2)
+            a, c, T = prims[Lb], prims[Lk], 32
+            A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+            args, bra, ket = ragged_class(rng, eri_kernel, Lb, Lk, a, c, A, T, T)
+            ti, tj = np.array([0, T, T]), np.array([T, 0, T])
+            out = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, T, T, bra, ket)
+            ref = eri_kernel.bra_tiles_plain(Lb, Lk, *args, ti, tj, T, T, bra, ket)
             torch.cuda.synchronize()
             err, rel = rel_err(out, ref)
-            print(f"kernel1 Lb={Lb} Lk={Lk} a={a} c={c} T1={T1} T2={T2}: "
+            print(f"kernel1 Lb={Lb} Lk={Lk} a={a} c={c} A={A} (ragged counts): "
                   f"max rel err {rel:.3e}", flush=True)
             if not rel <= KERNEL1_RTOL:
                 fail(f"kernel 1 disagrees with its twin at Lb={Lb} Lk={Lk}: {rel:.3e}")
@@ -89,12 +134,27 @@ def check_kernel1(eri_kernel, ncart, nhermite) -> float:
     return worst_abs
 
 
-def check_kernel2(fock_matvec) -> tuple[float, float, float]:
-    """Kernel 2 against terms @ d at m = 150 and m = 14400 (benzene/cc-pVDZ,
-    n = 120); returns (max abs err, kernel ms, twin ms) at m = 14400."""
+def check_boys(eri_kernel) -> None:
+    """The kernel's device Boys function against ``boys`` over T in [0, 50]."""
+    from qchem_rs_tpu_torch.ops.boys import boys
+
+    T = torch.linspace(0.0, 50.0, 100001, dtype=torch.float64, device="cuda")
+    for M in range(eri_kernel.KERNEL_MAX_L + 1):
+        ref = boys(M, T)
+        rel = float(((eri_kernel.boys_on_card(M, T) - ref).abs() / ref.abs()).max())
+        print(f"kernel1 Boys F_0..F_{M}, T in [0, 50]: max rel err {rel:.3e}", flush=True)
+        if not rel <= BOYS_RTOL:
+            fail(f"the kernel's Boys function misses boys at m <= {M}: {rel:.3e}")
+
+
+def check_kernel2(fock_matvec) -> dict:
+    """Kernel 2 against terms @ d at m = 150, 14400 (benzene/cc-pVDZ, n = 120)
+    and 14401 (odd); times the kernel, its twin and the library call (the
+    same terms @ d) at m = 14400, in turns."""
     worst_abs = 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for m in (150, 14400):
+    timed = None
+    for m in (150, 14401, 14400):
         T = torch.randn((m, m), generator=gen, dtype=torch.float64, device="cuda")
         T = T + T.T
         d = torch.randn(m, generator=gen, dtype=torch.float64, device="cuda")
@@ -106,13 +166,26 @@ def check_kernel2(fock_matvec) -> tuple[float, float, float]:
         if not rel <= KERNEL2_RTOL:
             fail(f"kernel 2 disagrees with its twin at m={m}: {rel:.3e}")
         worst_abs = max(worst_abs, err)
-    ms = cuda_ms(lambda: fock_matvec.matvec(T, d), 50)
-    plain_ms = cuda_ms(lambda: fock_matvec.matvec_plain(T, d), 50)
-    gbs = m * m * 8 / (ms * 1e-3) / 1e9
-    print(f"kernel2 m={m}: {ms:.4f} ms ({gbs:.0f} GB/s of terms), twin {plain_ms:.4f} ms",
-          flush=True)
+        timed = (m, T, d) if m == 14400 else None
+        if timed is None:
+            del T
+    m, T, d = timed
+    ms, plain_ms, library_ms = [], [], []
+    for _ in range(2):
+        library_ms.append(cuda_ms(lambda: T @ d, 50))
+        ms.append(cuda_ms(lambda: fock_matvec.matvec(T, d), 50))
+        plain_ms.append(cuda_ms(lambda: fock_matvec.matvec_plain(T, d), 50))
+    nb = -(-m // fock_matvec.BLOCK)
+    nbytes = 8.0 * (nb * (nb + 1) // 2 * fock_matvec.BLOCK**2 + 2 * m)  # upper blocks, d, G
+    res = {"max_abs_err": worst_abs, "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+           "library_ms": float(np.mean(library_ms)), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    print(f"kernel2 m={m}: {res['ms']:.4f} ms ({nbytes / (res['ms'] * 1e-3) / 1e9:.0f} GB/s of the "
+          f"{nbytes / 1e9:.3f} GB it must read), twin {res['plain_ms']:.4f} ms, terms @ d "
+          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"(runs: kernel {ms}, terms @ d {library_ms})", flush=True)
     del T
-    return worst_abs, ms, plain_ms
+    return res
 
 
 def run_rhf(Q, mol: str, eps: float, max_iterations: int):
@@ -122,13 +195,13 @@ def run_rhf(Q, mol: str, eps: float, max_iterations: int):
     t0 = time.perf_counter()
     out = Q.restricted_hartree_fock(system, cfg, device="cuda")
     wall = time.perf_counter() - t0
-    return system, out, wall
+    return system, cfg, out, wall
 
 
-def time_kernel1(engine, eri_kernel) -> tuple[float, float, float]:
-    """Kernel 1 against its twin over every tile batch of one benzene build:
-    (max abs err, kernel ms, twin ms). The twin runs in its own smaller
-    batches (its R tables are larger than the kernel's output)."""
+def time_kernel1(engine, eri_kernel) -> dict:
+    """Kernel 1 against its twin over every tile batch of one benzene build,
+    then the whole build's time: kernel, twin (in its own smaller batches:
+    its R tables are larger than the kernel's output) and bound."""
     worst_abs = 0.0
     for i1, i2, ti, tj in engine.batches(twin=True):
         out = engine.bra_batch(i1, i2, ti, tj)
@@ -139,14 +212,86 @@ def time_kernel1(engine, eri_kernel) -> tuple[float, float, float]:
         worst_abs = max(worst_abs, err)
     kernel_batches = list(engine.batches())
     twin_batches = list(engine.batches(twin=True))
-    ms = cuda_ms(lambda: [engine.bra_batch(*b) for b in kernel_batches], 3)
+    ms = [cuda_ms(lambda: [engine.bra_batch(*b) for b in kernel_batches], 5) for _ in range(2)]
     plain_ms = cuda_ms(
         lambda: [engine.bra_batch(*b, fn=eri_kernel.bra_tiles_plain) for b in twin_batches], 1
     )
-    return worst_abs, ms, plain_ms
+    nbytes, flops = engine.bra_kernel_work()
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
+    res = {"max_abs_err": worst_abs, "ms": float(np.mean(ms)), "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    print(f"kernel1 benzene build ({len(kernel_batches)} launches): {res['ms']:.3f} ms "
+          f"(runs {ms}), twin {plain_ms:.3f} ms, max abs err {worst_abs:.3e}; must move "
+          f"{nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do {flops / 1e9:.2f} GFLOP over the real "
+          f"primitive quartets ({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}", flush=True)
+    return res
 
 
-def main() -> int:
+def time_engine_setup(system) -> None:
+    """Host time of the tiled engine's set-up on the card, and of the part
+    of it that orders primitive pairs and counts them for kernel 1."""
+    from qchem_rs_tpu_torch.ops.eri_kernel import compact_prims, prim_counts
+    from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, pad_group
+
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = TiledEriEngine(system, 1e-12, device="cuda")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    padded = [pad_group(g, m.npad) for g, m in zip(engine.layout.groups, engine.layout.metas)]
+    compact = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for (E, p, P), m in zip(padded, engine.layout.metas):
+            prim_counts(compact_prims(E, p, P)[0], m.tile)
+        torch.cuda.synchronize()
+        compact.append(time.perf_counter() - t0)
+    print(f"benzene engine setup: {', '.join(f'{t:.4f}' for t in runs)} s; of which primitive "
+          f"compaction and counts {', '.join(f'{t:.4f}' for t in compact)} s", flush=True)
+
+
+def profile_benzene(Q, system, cfg) -> None:
+    """torch.profiler over one warm benzene run: device time by kernel and
+    the busy share of the profiled wall time. Only the device's own events
+    (kernels, copies, memsets) count: the device time of an aten row is that
+    of the kernels beneath it, which are events of their own. The busy time
+    is the union of their intervals, so kernels that overlap count once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profile benzene: the profiler traced no device events: busy share not measured",
+              flush=True)
+        return
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name: dict[str, list] = {}
+    for e in events:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+    summed_us = sum(us for us, _ in by_name.values())
+    print(f"profile benzene: wall {wall:.4f} s (total_s {out.timings['total_s']:.4f}), "
+          f"{len(events)} device events summing to {summed_us / 1e6:.4f} s, busy (their union) "
+          f"{busy_us / 1e6:.4f} s, busy share {busy_us / 1e6 / wall:.4f}", flush=True)
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"profile benzene: {us / 1e3:10.3f} ms {count:6d}x {name[:90]}", flush=True)
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -155,7 +300,7 @@ def main() -> int:
     from qchem_rs_tpu_torch.ops import eri_kernel, fock_matvec
     from qchem_rs_tpu_torch.ops.angular import ncart
     from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
-    from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
+    from qchem_rs_tpu_torch.utils.cuda import load_all
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -167,21 +312,20 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 1. build both kernels from the checkout's sources
+    kernels = (eri_kernel.KERNEL, eri_kernel.BOYS_PROBE, fock_matvec.KERNEL)
     t0 = time.perf_counter()
-    for k in (eri_kernel.KERNEL, fock_matvec.KERNEL):
-        k.load()
+    load_all(list(kernels))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for k in (eri_kernel.KERNEL, fock_matvec.KERNEL):
-        for line in k.ptxas_report.splitlines():
-            if "Used" in line or "spill" in line or "stack frame" in line:
-                print(f"ptxas {k.source}: {line.strip()}", flush=True)
+    print_ptxas(eri_kernel.KERNEL)
+    print_ptxas(fock_matvec.KERNEL)
 
     # 2. each kernel against its twin
-    k1_abs = check_kernel1(eri_kernel, ncart, nhermite)
-    k2_abs, k2_ms, k2_plain_ms = check_kernel2(fock_matvec)
+    k1_abs = check_kernel1(eri_kernel, ncart)
+    check_boys(eri_kernel)
+    k2 = check_kernel2(fock_matvec)
 
     # 3. water/cc-pVDZ against its anchor
-    _, out, wall = run_rhf(Q, "water", 1e-10, 100)
+    _, _, out, wall = run_rhf(Q, "water", 1e-10, 100)
     dE = out.total_energy() - WATER_E
     print(f"water/cc-pVDZ: E {out.total_energy():.10f} (dE {dE:.2e}), "
           f"{out.iterations} iterations, converged {out.converged}, {wall:.2f} s", flush=True)
@@ -189,39 +333,52 @@ def main() -> int:
         fail("water/cc-pVDZ misses its anchor")
 
     # 4. the headline: benzene/cc-pVDZ at diag_rms 1e-8, counting launches
-    for k in (eri_kernel.KERNEL, fock_matvec.KERNEL):
+    for k in kernels:
         k.launches = 0
-    system, out, wall = run_rhf(Q, "benzene", 1e-8, 150)
+    system, cfg, out, wall = run_rhf(Q, "benzene", 1e-8, 150)
     launches = {"eri_tile": eri_kernel.KERNEL.launches, "fock_matvec": fock_matvec.KERNEL.launches}
     tm = out.timings
     dE = out.total_energy() - BENZENE_E
+    dE_card = out.total_energy() - BENZENE_E_CARD
     engine = TiledEriEngine(system, 1e-12, device="cuda")
     flops = engine.analytic_build_flops()
-    print(f"benzene/cc-pVDZ: E {out.total_energy():.10f} (dE {dE:.2e}), "
-          f"{out.iterations} iterations, converged {out.converged}", flush=True)
+    setup_s = tm["total_s"] - tm["one_electron_s"] - tm["eri_s"] - tm["scf_s"]
+    print(f"benzene/cc-pVDZ: E {out.total_energy():.10f} (dE {dE:.2e} from the anchor, "
+          f"{dE_card:.2e} from the earlier H100 value), {out.iterations} iterations, "
+          f"converged {out.converged}", flush=True)
     print(f"benzene/cc-pVDZ timings: one_electron_s {tm['one_electron_s']:.4f}, "
-          f"eri_s {tm['eri_s']:.4f}, scf_s {tm['scf_s']:.4f}, total_s {tm['total_s']:.4f}, "
-          f"wall {wall:.4f}; analytic build {flops / 1e9:.1f} GFLOP -> "
-          f"{flops / tm['eri_s'] / 1e9:.1f} GFLOP/s", flush=True)
+          f"eri_s {tm['eri_s']:.4f}, scf_s {tm['scf_s']:.4f}, engine setup {setup_s:.4f}, "
+          f"total_s {tm['total_s']:.4f}, wall {wall:.4f}; analytic build {flops / 1e9:.1f} GFLOP "
+          f"-> {flops / tm['eri_s'] / 1e9:.1f} GFLOP/s", flush=True)
     print(f"benzene/cc-pVDZ launches: {launches}", flush=True)
-    if not (out.converged and abs(dE) <= 1e-6):
+    if not (out.converged and abs(dE) <= 1e-6 and abs(dE_card) <= 1e-9):
         fail("benzene/cc-pVDZ did not converge to its anchor")
     if not all(v > 0 for v in launches.values()):
         fail(f"the benzene run bypassed a kernel: {launches}")
+    _, _, out, _ = run_rhf(Q, "benzene", 1e-8, 150)
+    tm = out.timings
+    print(f"benzene/cc-pVDZ warm again: total_s {tm['total_s']:.4f}, one_electron_s "
+          f"{tm['one_electron_s']:.4f}, eri_s {tm['eri_s']:.4f}, scf_s {tm['scf_s']:.4f}",
+          flush=True)
 
-    # 5. kernel 1 against its twin at the benzene shapes
-    k1_bz_abs, k1_ms, k1_plain_ms = time_kernel1(engine, eri_kernel)
-    print(f"kernel1 benzene build ({len(list(engine.batches()))} launches): {k1_ms:.3f} ms, "
-          f"twin {k1_plain_ms:.3f} ms, max abs err {k1_bz_abs:.3e}", flush=True)
+    # 5. kernel 1 against its twin at the benzene shapes, and timed
+    k1 = time_kernel1(engine, eri_kernel)
+    time_engine_setup(system)
+    if "--profile" in argv:
+        profile_benzene(Q, system, cfg)
 
     print(json.dumps({"kernels": [
         {"name": "eri_tile", "route": "cuda", "source": "qchem_rs_tpu_torch/csrc/eri_tile.cu",
          "replaces": "qchem_rs_tpu/ops/eri_pallas.py:205", "launches": launches["eri_tile"],
-         "max_abs_err": max(k1_abs, k1_bz_abs), "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches_per_run": launches["eri_tile"], "max_abs_err": max(k1_abs, k1["max_abs_err"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],
-         "max_abs_err": k2_abs, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches_per_run": launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -230,4 +387,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -3,170 +3,502 @@
 // Replaces the three Pallas kernels of qchem_rs_tpu/ops/eri_pallas.py
 // (_kernel_fused_e1, _kernel_fused, _kernel_htab), which computed the same
 // chain in (hi, lo)-f32 arithmetic and split it three ways around VMEM and
-// Mosaic's unroll limits. Here one kernel with the angular momenta given at
-// run time serves every class pair with L = Lb + Lk <= 8.
+// Mosaic's unroll limits.
 //
 // For tile k (bra pairs ti[k]..ti[k]+T1-1, ket pairs tj[k]..tj[k]+T2-1):
 //
 //   out[k, alpha, ic*S2+s2, t1, t2] =
-//       sum_{ia, s1} E1[ti+t1, ia, alpha, s1] * sign[s2] * pref * R[idx[s1,s2]]
+//       sum_{ia < n1[row], s1} E1[row, ia, alpha, s1] * sign[s2] * pref * R[idx(s1,s2)]
 //
-// with R the Hermite Coulomb table R_tuv(alpha_q, P - Q) of the primitive
-// quartet (bra primitive pair ia, ket primitive pair ic), built from Boys
-// F_0..F_L by the downward recursion of mcmurchie._r_plan, and
-// pref = 2 pi^{5/2} / (p q sqrt(p + q)).
+// for ket primitive pairs ic < n2[col] of pair col = tj[k]+t2, and 0.0 for
+// the others (their E2 is zero, and the ket contraction after this kernel
+// must not meet garbage). R is the Hermite Coulomb table R_tuv(alpha, P - Q)
+// of the primitive quartet, built from Boys F_0..F_L by the downward
+// recursion of mcmurchie._r_plan; pref = 2 pi^{5/2} / (p q sqrt(p + q)).
 //
-// Bound by FP64 arithmetic and per-thread state. One thread owns one
-// (tile, t1, t2, ic) point and loops over ia. The R table (up to 165
-// doubles) lives in thread-local memory, updated in place level by level
-// (entry s reads only entries of lower index, so a descending sweep needs no
-// second buffer). The A*S2 sums accumulate directly in the output, which
-// each thread owns exclusively. Consecutive threads differ in t2, so output
-// stores coalesce and E1/plan reads are uniform across a warp.
+// What bounds it on the H100: the write of its output (every class pair
+// writes (nt, A, c*S2, T1, T2) doubles, 2.9 GB for one benzene/cc-pVDZ
+// build), once the arithmetic is only that of real primitive quartets.
+// The design:
 //
-// C interface (bound with ctypes): eri_bra_tiles(...) launches on `stream`
-// and returns the cudaError_t of the launch.
+// - Real primitives only. The caller orders each pair's primitive pairs so
+//   that those with nonzero E come first and passes their counts (n1 per
+//   bra pair; per ket tile block, the list of its real (t2, ic) points
+//   first, then the rest). The bra loop stops at n1[row]; a thread whose
+//   ket point is not real only writes zeros.
+// - One thread owns one (tile, alpha chunk, t1, ket point). Threads of a
+//   warp share t1, so the bra loop bound and every bra load (E1, p1, P1)
+//   are uniform across the warp; consecutive threads take consecutive ket
+//   points (ic-major, then t2), so the final stores coalesce.
+// - Sums on chip, one store. The AC*S2 sums of an alpha chunk live in
+//   registers over the whole bra loop and are stored once. AC is chosen
+//   per class so that they fit (at most 24 doubles, or S2 when S2 is
+//   larger); classes with more Cartesian components take several chunks
+//   and recompute R per chunk.
+// - R on chip, plan at compile time. The kernel is a template on (LB, LK):
+//   the recursion and the (s1, s2) gather unroll through integer sequences
+//   into constant indices, so R sits in registers (L <= 4) or, for L >= 5,
+//   in the thread's own column of shared memory, and no plan is read from
+//   device memory.
+// - Boys without division in any loop: the Kummer series is one Horner
+//   polynomial whose coefficients prod_k 1/(2m+2k+1) are compile-time
+//   constants, and the downward and upward recursions multiply by
+//   compile-time reciprocals (tests/test_torch_integrals.py holds the same
+//   arithmetic on the CPU against ops/boys.py::boys).
+//
+// The 25 instantiations (LB, LK <= 4, every pair class up to (d, d)) are
+// built as 25 translation units (KERNEL_PART) by concurrent nvcc processes;
+// compiled without KERNEL_PART the file is one whole library.
+//
+// C interface (bound with ctypes): eri_bra_tiles(...) and eri_boys(...)
+// launch on `stream` and return the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include <utility>
+
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+
+namespace qchem_eri {
+
+#define HD __host__ __device__
 
 constexpr int kMaxL = 8;
-constexpr int kMaxH = (kMaxL + 1) * (kMaxL + 2) * (kMaxL + 3) / 6;  // 165
 constexpr double kPi = 3.141592653589793238462643383279502884;
-constexpr int kThreads = 128;
+constexpr int kMaxSide = 4;     // LB, LK <= 4: pair classes up to (d, d)
+constexpr int kAccBudget = 24;  // doubles of sums a thread keeps in registers
 
-// F_0..F_mmax(T): the three branches of qchem_rs_tpu/ops/boys.py::boys.
-__device__ void boys(int mmax, double T, double* F) {
-  if (mmax == 0) {
-    if (T < 0.01) {
-      // F_0(T) = sum_k (-T)^k / (k! (2k+1)), 7 terms
-      const double c[7] = {1.0, 1.0 / 3.0, 1.0 / 10.0, 1.0 / 42.0,
-                           1.0 / 216.0, 1.0 / 1320.0, 1.0 / 9360.0};
-      double f = c[6];
-      for (int k = 5; k >= 0; --k) f = c[k] - T * f;
-      F[0] = f;
-    } else {
-      F[0] = 0.5 * sqrt(kPi / T) * erf(sqrt(T));
+HD constexpr int ntri(int n) { return (n + 1) * (n + 2) / 2; }
+HD constexpr int nherm(int L) { return (L + 1) * (L + 2) * (L + 3) / 6; }
+HD constexpr int imin(int x, int y) { return x < y ? x : y; }
+HD constexpr int imax(int x, int y) { return x > y ? x : y; }
+
+// largest ncart(la) * ncart(lb) over la + lb = L
+HD constexpr int max_pair_comps(int L) {
+  int m = 0;
+  for (int lb = 0; 2 * lb <= L; ++lb) m = imax(m, ntri(L - lb) * ntri(lb));
+  return m;
+}
+
+// position of (t, u, v) in hermite_components(L): t outer, then u, then v
+HD constexpr int hidx(int L, int t, int u, int v) {
+  int s = 0;
+  for (int k = 0; k < t; ++k) s += ntri(L - k);
+  for (int k = 0; k < u; ++k) s += L - t - k + 1;
+  return s + v;
+}
+
+struct Tuv {
+  int t, u, v;
+};
+
+HD constexpr Tuv tuv_of(int L, int s) {
+  int t = 0;
+  while (s >= ntri(L - t)) {
+    s -= ntri(L - t);
+    ++t;
+  }
+  int u = 0;
+  while (s >= L - t - u + 1) {
+    s -= L - t - u + 1;
+    ++u;
+  }
+  return Tuv{t, u, s};
+}
+
+// one step of the downward R recursion for entry s > 0 (mcmurchie._r_plan):
+// R_s = PC_d R_{s - e_d} + c R_{s - 2 e_d}, d the first nonzero dimension
+struct Step {
+  int d, i1, i2, c, ord;
+};
+
+HD constexpr Step step_of(int L, int s) {
+  const Tuv e = tuv_of(L, s);
+  const int ord = e.t + e.u + e.v;
+  if (e.t >= 1)
+    return Step{0, hidx(L, e.t - 1, e.u, e.v), e.t >= 2 ? hidx(L, e.t - 2, e.u, e.v) : 0,
+                e.t - 1, ord};
+  if (e.u >= 1)
+    return Step{1, hidx(L, e.t, e.u - 1, e.v), e.u >= 2 ? hidx(L, e.t, e.u - 2, e.v) : 0,
+                e.u - 1, ord};
+  return Step{2, hidx(L, e.t, e.u, e.v - 1), e.v >= 2 ? hidx(L, e.t, e.u, e.v - 2) : 0, e.v - 1,
+              ord};
+}
+
+// R index of the (s1, s2) gather (eri._r2_gather)
+HD constexpr int gather_of(int LB, int LK, int s1, int s2) {
+  const Tuv b = tuv_of(LB, s1);
+  const Tuv k = tuv_of(LK, s2);
+  return hidx(LB + LK, b.t + k.t, b.u + k.u, b.v + k.v);
+}
+
+HD constexpr bool odd_sign(int LK, int s2) {
+  const Tuv k = tuv_of(LK, s2);
+  return ((k.t + k.u + k.v) & 1) != 0;
+}
+
+template <int LK, int S2>
+struct OddSign {  // sign[s2] of the gather is -1
+  static constexpr bool v = odd_sign(LK, S2);
+};
+
+// ---------------------------------------------------------------- Boys
+
+template <int K>
+struct RcpOdd {  // 1 / (2K + 1)
+  static constexpr double v = 1.0 / (2 * K + 1);
+};
+
+template <int M, int I>
+struct KummerCoef {  // prod_{k=0..I} 1 / (2M + 2k + 1)
+  static constexpr double v = KummerCoef<M, I - 1>::v * RcpOdd<M + I>::v;
+};
+template <int M>
+struct KummerCoef<M, 0> {
+  static constexpr double v = RcpOdd<M>::v;
+};
+
+template <int M>
+constexpr int kSeriesTerms = 2 * M + 40;  // ops/boys.py::series_terms
+
+// sum_{i=0..N} c_i x^i by Horner, highest coefficient first
+template <int M, int N, int... I>
+__device__ __forceinline__ double kummer(double x, std::integer_sequence<int, I...>) {
+  double acc = KummerCoef<M, N>::v;
+  ((acc = fma(acc, x, KummerCoef<M, N - 1 - I>::v)), ...);
+  return acc;
+}
+
+template <int... I>
+__device__ __forceinline__ void boys_down(double x, double eT, double* F,
+                                          std::integer_sequence<int, I...>) {
+  // m = M - I: F_{m-1} = (2T F_m + e^-T) / (2m - 1)
+  constexpr int M = sizeof...(I);
+  ((F[M - I - 1] = fma(x, F[M - I], eT) * RcpOdd<M - I - 1>::v), ...);
+}
+
+// F_0..F_M(T): the three branches of ops/boys.py::boys, with one division
+// (1/T) and none inside a loop
+template <int M>
+__device__ __forceinline__ void boys(double T, double* F) {
+  if (T < 0.01 && M == 0) {
+    // F_0(T) = sum_k (-T)^k / (k! (2k+1)), 7 terms
+    double f = 1.0 / 9360.0;
+    f = fma(-T, f, 1.0 / 1320.0);
+    f = fma(-T, f, 1.0 / 216.0);
+    f = fma(-T, f, 1.0 / 42.0);
+    f = fma(-T, f, 1.0 / 10.0);
+    f = fma(-T, f, 1.0 / 3.0);
+    F[0] = fma(-T, f, 1.0);
+    return;
+  }
+  if (M == 0 || T > M + 1.5) {
+    const double invT = 1.0 / T;
+    F[0] = 0.5 * sqrt(kPi * invT) * erf(sqrt(T));
+    if (M > 0) {
+      // upward recursion from the closed form, contracting for T > m + 1/2
+      const double eT = exp(-T);
+      const double inv2T = 0.5 * invT;
+#pragma unroll
+      for (int m = 0; m < M; ++m) F[m + 1] = fma(static_cast<double>(2 * m + 1), F[m], -eT) * inv2T;
     }
     return;
   }
+  // Kummer series at M, then exact downward recursion
   const double eT = exp(-T);
-  if (T > mmax + 1.5) {
-    // upward recursion from the closed form, contracting for T > m + 1/2
-    F[0] = 0.5 * sqrt(kPi / T) * erf(sqrt(T));
-    const double inv2T = 0.5 / T;
-    for (int m = 0; m < mmax; ++m) F[m + 1] = ((2 * m + 1) * F[m] - eT) * inv2T;
-  } else {
-    // Kummer series at mmax, then exact downward recursion
-    double term = 1.0 / (2 * mmax + 1);
-    double sum = term;
-    const int nterms = 2 * mmax + 40;
-    for (int i = 0; i < nterms; ++i) {
-      term *= 2.0 * T / (2 * mmax + 2 * i + 3);
-      sum += term;
-    }
-    F[mmax] = eT * sum;
-    for (int m = mmax; m > 0; --m) F[m - 1] = (2.0 * T * F[m] + eT) / (2 * m - 1);
-  }
+  const double x = 2.0 * T;
+  F[M] = eT * kummer<M, kSeriesTerms<M>>(x, std::make_integer_sequence<int, kSeriesTerms<M>>{});
+  boys_down(x, eT, F, std::make_integer_sequence<int, M>{});
 }
 
-__global__ void __launch_bounds__(kThreads)
-eri_bra_tiles_kernel(int Lb, int Lk, int a, int c, int A, int S1, int S2, int T1, int T2,
-                     long long total, const double* __restrict__ E1,
-                     const double* __restrict__ p1, const double* __restrict__ P1,
-                     const double* __restrict__ p2, const double* __restrict__ P2,
-                     const int* __restrict__ ti, const int* __restrict__ tj,
-                     const int* __restrict__ rplan, const int* __restrict__ r2plan,
-                     double* __restrict__ out) {
-  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= total) return;
-  const int t2 = static_cast<int>(gid % T2);
-  long long rest = gid / T2;
-  const int t1 = static_cast<int>(rest % T1);
-  rest /= T1;
-  const int ic = static_cast<int>(rest % c);
-  const long long tile = rest / c;
+// ---------------------------------------------------------------- R table
 
-  const int L = Lb + Lk;
-  const int H = (L + 1) * (L + 2) * (L + 3) / 6;
-  const int* rd = rplan;           // PC dimension of each entry's step
-  const int* ri1 = rplan + H;      // index of s - e_d
-  const int* ri2 = rplan + 2 * H;  // index of s - 2 e_d
-  const int* rc = rplan + 3 * H;   // coefficient s_d - 1
-  const int* ro = rplan + 4 * H;   // total order t + u + v
-  const int* idx = r2plan;         // (S1, S2)
-  const int* sgn = r2plan + S1 * S2;
+template <int H, bool SMEM, int NT>
+struct RTab;
 
-  const int row = ti[tile] + t1;
-  const int col = tj[tile] + t2;
-  const double q = p2[static_cast<size_t>(col) * c + ic];
-  const double* Q = P2 + (static_cast<size_t>(col) * c + ic) * 3;
-  const double Qx = Q[0], Qy = Q[1], Qz = Q[2];
+template <int H, int NT>
+struct RTab<H, false, NT> {  // registers
+  double v[H];
+  __device__ explicit RTab(double*) {}
+  template <int S>
+  __device__ __forceinline__ double& at() { return v[S]; }
+};
 
-  const size_t plane = static_cast<size_t>(T1) * T2;
-  const size_t cS2 = static_cast<size_t>(c) * S2;
-  double* o = out + (static_cast<size_t>(tile) * A * cS2 + static_cast<size_t>(ic) * S2) * plane +
-              static_cast<size_t>(t1) * T2 + t2;
+template <int H, int NT>
+struct RTab<H, true, NT> {  // the thread's column of a (H, NT) shared array
+  double* p;
+  __device__ explicit RTab(double* base) : p(base) {}
+  template <int S>
+  __device__ __forceinline__ double& at() { return p[S * NT]; }
+};
 
-  double R[kMaxH];
-  double F[kMaxL + 1];
-  for (int ia = 0; ia < a; ++ia) {
-    const size_t bp = static_cast<size_t>(row) * a + ia;
-    const double p = p1[bp];
-    const double ps = p + q;
-    const double pq = p * q;
-    const double al = pq / ps;
-    const double PQ[3] = {P1[bp * 3] - Qx, P1[bp * 3 + 1] - Qy, P1[bp * 3 + 2] - Qz};
-    boys(L, al * (PQ[0] * PQ[0] + PQ[1] * PQ[1] + PQ[2] * PQ[2]), F);
-    // base[n] = (-2 alpha)^n F_n
-    double pw = 1.0;
-    for (int n = 0; n <= L; ++n) {
-      F[n] *= pw;
-      pw *= -2.0 * al;
-    }
-    R[0] = F[L];
-    for (int n = L - 1; n >= 0; --n) {
-      const int maxo = L - n;
-      for (int s = H - 1; s >= 1; --s) {
-        if (ro[s] > maxo) continue;
-        R[s] = PQ[rd[s]] * R[ri1[s]] + rc[s] * R[ri2[s]];
-      }
-      R[0] = F[n];
-    }
-    const double pref = 2.0 * kPi * kPi * sqrt(kPi) / (pq * sqrt(ps));
-    const double* e = E1 + bp * A * S1;
-    for (int al_ = 0; al_ < A; ++al_) {
-      const double* ea = e + al_ * S1;
-      double* oa = o + static_cast<size_t>(al_) * cS2 * plane;
-      for (int s2 = 0; s2 < S2; ++s2) {
-        double acc = 0.0;
-        for (int s1 = 0; s1 < S1; ++s1) acc = fma(ea[s1], R[idx[s1 * S2 + s2]], acc);
-        const double v = sgn[s2] * pref * acc;
-        double* dst = oa + static_cast<size_t>(s2) * plane;
-        *dst = (ia == 0) ? v : *dst + v;
-      }
+template <int L, int S, class RT>
+__device__ __forceinline__ void r_step(RT& R, const double (&pc)[3], int maxo) {
+  constexpr Step st = step_of(L, S);
+  if (st.ord <= maxo) {
+    if constexpr (st.c == 0) {
+      R.template at<S>() = pc[st.d] * R.template at<st.i1>();
+    } else {
+      R.template at<S>() = fma(pc[st.d], R.template at<st.i1>(),
+                               static_cast<double>(st.c) * R.template at<st.i2>());
     }
   }
 }
 
-}  // namespace
+// one level of the recursion: entries H-1 down to 1 (each reads only lower
+// entries, which still hold the level above)
+template <int L, class RT, int... I>
+__device__ __forceinline__ void r_level(RT& R, const double (&pc)[3], int maxo,
+                                        std::integer_sequence<int, I...>) {
+  (r_step<L, nherm(L) - 1 - I>(R, pc, maxo), ...);
+}
 
-extern "C" int eri_bra_tiles(int Lb, int Lk, int a, int c, int A, int S1, int S2, int T1, int T2,
-                             int ntiles, const void* E1, const void* p1, const void* P1,
-                             const void* p2, const void* P2, const void* ti, const void* tj,
-                             const void* rplan, const void* r2plan, void* out, void* stream) {
-  if (Lb < 0 || Lk < 0 || Lb + Lk > kMaxL) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(ntiles) * c * T1 * T2;
-  if (total <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  eri_bra_tiles_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      Lb, Lk, a, c, A, S1, S2, T1, T2, total, static_cast<const double*>(E1),
-      static_cast<const double*>(p1), static_cast<const double*>(P1),
-      static_cast<const double*>(p2), static_cast<const double*>(P2),
-      static_cast<const int*>(ti), static_cast<const int*>(tj),
-      static_cast<const int*>(rplan), static_cast<const int*>(r2plan),
-      static_cast<double*>(out));
+// ------------------------------------------------------- bra contraction
+
+// acc[j][s2] += e * R[idx(s1, s2)] over s2, for one (alpha chunk entry j, s1)
+template <int LB, int LK, int S1V, class RT, int... S2V>
+__device__ __forceinline__ void contract_alpha(double (&acc)[nherm(LK)], double e, RT& R,
+                                               std::integer_sequence<int, S2V...>) {
+  ((acc[S2V] = fma(e, R.template at<gather_of(LB, LK, S1V, S2V)>(), acc[S2V])), ...);
+}
+
+template <int LB, int LK, int AC, int S1V, class RT>
+__device__ __forceinline__ void contract_row(double (&acc)[AC][nherm(LK)], const double* eb,
+                                             int alpha0, int A, RT& R) {
+  constexpr int S1 = nherm(LB);
+#pragma unroll
+  for (int j = 0; j < AC; ++j) {
+    const double e = alpha0 + j < A ? __ldg(eb + (alpha0 + j) * S1 + S1V) : 0.0;
+    contract_alpha<LB, LK, S1V>(acc[j], e, R, std::make_integer_sequence<int, nherm(LK)>{});
+  }
+}
+
+template <int LB, int LK, int AC, class RT, int... S1V>
+__device__ __forceinline__ void contract(double (&acc)[AC][nherm(LK)], const double* eb,
+                                         int alpha0, int A, RT& R,
+                                         std::integer_sequence<int, S1V...>) {
+  (contract_row<LB, LK, AC, S1V>(acc, eb, alpha0, A, R), ...);
+}
+
+template <int LB, int LK, int AC, int... S2V>
+__device__ __forceinline__ void store_row(double* o, size_t stride, const double (&acc)[nherm(LK)],
+                                          std::integer_sequence<int, S2V...>) {
+  ((o[S2V * stride] = OddSign<LK, S2V>::v ? -acc[S2V] : acc[S2V]), ...);
+}
+
+// ------------------------------------------------------------- the kernel
+
+template <int LB_, int LK_>
+struct Cfg {
+  static_assert(LB_ <= kMaxSide && LK_ <= kMaxSide, "pair classes up to (d, d)");
+  static constexpr int LB = LB_, LK = LK_;
+  static constexpr int L = LB + LK;
+  static constexpr int H = nherm(L);
+  static constexpr bool kSmemR = L >= 5;
+  static constexpr int kThreads = kSmemR ? 64 : 128;
+  static constexpr int AC = imin(max_pair_comps(LB), imax(1, kAccBudget / nherm(LK)));
+  static constexpr size_t kSmem = kSmemR ? sizeof(double) * H * kThreads : 0;
+};
+
+struct Args {
+  const double* E1;      // (N1, a, A, S1)
+  const double* p1;      // (N1, a)
+  const double* P1;      // (N1, a, 3)
+  const double* p2;      // (N2, c)
+  const double* P2;      // (N2, c, 3)
+  const int* ti;         // (nt,) bra tile offsets
+  const int* tj;         // (nt,) ket tile offsets
+  const int* n1;         // (N1,) real bra primitive pairs
+  const int* korder;     // (N2 / T2, c*T2) ket points ic*T2 + t2, real first
+  const int* knreal;     // (N2 / T2,) real ket points per tile block
+  double* out;           // (nt, A, c*S2, T1, T2)
+  int a, c, A, T1, T2, nch;
+  long long total;       // nt * nch * T1 * c * T2 threads
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads) eri_bra_tiles_kernel(const Args g) {
+  constexpr int LB = C::LB, LK = C::LK;
+  constexpr int L = C::L, S1 = nherm(LB), S2 = nherm(LK), AC = C::AC;
+  extern __shared__ double smem[];
+
+  const long long gid = static_cast<long long>(blockIdx.x) * C::kThreads + threadIdx.x;
+  if (gid >= g.total) return;
+  const int KP = g.c * g.T2;
+  const int kp = static_cast<int>(gid % KP);
+  long long rest = gid / KP;
+  const int t1 = static_cast<int>(rest % g.T1);
+  rest /= g.T1;
+  const int ch = static_cast<int>(rest % g.nch);
+  const long long tile = rest / g.nch;
+
+  const int kb = g.tj[tile] / g.T2;
+  const int code = g.korder[static_cast<size_t>(kb) * KP + kp];
+  const int t2 = code % g.T2;
+  const int ic = code / g.T2;
+  const int row = g.ti[tile] + t1;
+  const int col = g.tj[tile] + t2;
+  const int nb = kp < g.knreal[kb] ? g.n1[row] : 0;
+  const int alpha0 = ch * AC;
+
+  double acc[AC][S2];
+#pragma unroll
+  for (int j = 0; j < AC; ++j)
+#pragma unroll
+    for (int s = 0; s < S2; ++s) acc[j][s] = 0.0;
+
+  if (nb > 0) {
+    const size_t kq = static_cast<size_t>(col) * g.c + ic;
+    const double q = g.p2[kq];
+    const double Qx = g.P2[kq * 3], Qy = g.P2[kq * 3 + 1], Qz = g.P2[kq * 3 + 2];
+    RTab<C::H, C::kSmemR, C::kThreads> R(smem + threadIdx.x);
+    for (int ia = 0; ia < nb; ++ia) {
+      const size_t bp = static_cast<size_t>(row) * g.a + ia;
+      const double p = __ldg(g.p1 + bp);
+      const double ps = p + q;
+      const double pq = p * q;
+      const double inv = 1.0 / (pq * ps);
+      const double al = pq * pq * inv;  // pq / (p + q)
+      const double pc[3] = {__ldg(g.P1 + bp * 3) - Qx, __ldg(g.P1 + bp * 3 + 1) - Qy,
+                            __ldg(g.P1 + bp * 3 + 2) - Qz};
+      double F[L + 1];
+      boys<L>(al * (pc[0] * pc[0] + pc[1] * pc[1] + pc[2] * pc[2]), F);
+      // base[n] = pref (-2 alpha)^n F_n; R is linear in them, so pref rides along
+      double w = 2.0 * kPi * kPi * sqrt(kPi) * (ps * inv) * sqrt(pq * inv);
+#pragma unroll
+      for (int n = 0; n <= L; ++n) {
+        F[n] *= w;
+        w *= -2.0 * al;
+      }
+      R.template at<0>() = F[L];
+#pragma unroll
+      for (int n = L - 1; n >= 0; --n) {
+        r_level<L>(R, pc, L - n, std::make_integer_sequence<int, C::H - 1>{});
+        R.template at<0>() = F[n];
+      }
+      contract<LB, LK, AC>(acc, g.E1 + bp * g.A * S1, alpha0, g.A, R,
+                           std::make_integer_sequence<int, S1>{});
+    }
+  }
+
+  const size_t plane = static_cast<size_t>(g.T1) * g.T2;
+  const size_t cS2 = static_cast<size_t>(g.c) * S2;
+  double* o = g.out + (static_cast<size_t>(tile) * g.A * cS2 + static_cast<size_t>(ic) * S2) * plane +
+              static_cast<size_t>(t1) * g.T2 + t2;
+#pragma unroll
+  for (int j = 0; j < AC; ++j) {
+    if (alpha0 + j < g.A)
+      store_row<LB, LK, AC>(o + static_cast<size_t>(alpha0 + j) * cS2 * plane, plane, acc[j],
+                            std::make_integer_sequence<int, S2>{});
+  }
+}
+
+template <int LB, int LK>
+int launch(const Args& g, cudaStream_t stream) {
+  using C = Cfg<LB, LK>;
+  if (C::kSmem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(eri_bra_tiles_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long blocks = (g.total + C::kThreads - 1) / C::kThreads;
+  eri_bra_tiles_kernel<C><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ----------------------------------------------------- Boys probe kernel
+
+template <int M>
+__global__ void boys_probe_kernel(int n, const double* __restrict__ T, double* __restrict__ F) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double f[M + 1];
+  boys<M>(T[i], f);
+#pragma unroll
+  for (int m = 0; m <= M; ++m) F[static_cast<size_t>(m) * n + i] = f[m];
+}
+
+template <int M>
+int launch_boys(int n, const double* T, double* F, cudaStream_t stream) {
+  boys_probe_kernel<M><<<(n + 127) / 128, 128, 0, stream>>>(n, T, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every (LB, LK) with LB, LK <= kMaxSide. Built in parts, translation unit
+// KERNEL_PART = 5 LB + LK instantiates class (LB, LK) alone, and part 0
+// also holds the C interface; without KERNEL_PART the one unit holds all.
+#define QCHEM_ERI_CLASSES(X)                                                  \
+  X(0, 0) X(0, 1) X(0, 2) X(0, 3) X(0, 4) X(1, 0) X(1, 1) X(1, 2) X(1, 3)     \
+  X(1, 4) X(2, 0) X(2, 1) X(2, 2) X(2, 3) X(2, 4) X(3, 0) X(3, 1) X(3, 2)     \
+  X(3, 3) X(3, 4) X(4, 0) X(4, 1) X(4, 2) X(4, 3) X(4, 4)
+
+#if KERNEL_PART >= 0
+#define QCHEM_ERI_EXTERN(lb, lk) extern template int launch<lb, lk>(const Args&, cudaStream_t);
+QCHEM_ERI_CLASSES(QCHEM_ERI_EXTERN)
+template int launch<KERNEL_PART / 5, KERNEL_PART % 5>(const Args&, cudaStream_t);
+#endif
+
+#if KERNEL_PART <= 0
+using LaunchFn = int (*)(const Args&, cudaStream_t);
+#define QCHEM_ERI_ENTRY(lb, lk) {lb, lk, Cfg<lb, lk>::AC, &launch<lb, lk>},
+struct Entry {
+  int lb, lk, width;  // width: the alpha-chunk AC of the class
+  LaunchFn launch;
+};
+const Entry kEntries[] = {QCHEM_ERI_CLASSES(QCHEM_ERI_ENTRY)};
+
+const Entry* find(int lb, int lk) {
+  for (const Entry& e : kEntries)
+    if (e.lb == lb && e.lk == lk) return &e;
+  return nullptr;
+}
+
+using BoysFn = int (*)(int, const double*, double*, cudaStream_t);
+const BoysFn kBoys[kMaxL + 1] = {&launch_boys<0>, &launch_boys<1>, &launch_boys<2>,
+                                 &launch_boys<3>, &launch_boys<4>, &launch_boys<5>,
+                                 &launch_boys<6>, &launch_boys<7>, &launch_boys<8>};
+#endif
+
+}  // namespace qchem_eri
+
+#if KERNEL_PART <= 0
+extern "C" int eri_bra_tiles(int Lb, int Lk, int a, int c, int A, int T1, int T2, int ntiles,
+                             const void* E1, const void* p1, const void* P1, const void* p2,
+                             const void* P2, const void* ti, const void* tj, const void* n1,
+                             const void* korder, const void* knreal, void* out, void* stream) {
+  const qchem_eri::Entry* e = qchem_eri::find(Lb, Lk);
+  if (e == nullptr || a <= 0 || c <= 0 || A <= 0 || T1 <= 0 || T2 <= 0 || ntiles <= 0 ||
+      n1 == nullptr || korder == nullptr || knreal == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  qchem_eri::Args g;
+  g.E1 = static_cast<const double*>(E1);
+  g.p1 = static_cast<const double*>(p1);
+  g.P1 = static_cast<const double*>(P1);
+  g.p2 = static_cast<const double*>(p2);
+  g.P2 = static_cast<const double*>(P2);
+  g.ti = static_cast<const int*>(ti);
+  g.tj = static_cast<const int*>(tj);
+  g.n1 = static_cast<const int*>(n1);
+  g.korder = static_cast<const int*>(korder);
+  g.knreal = static_cast<const int*>(knreal);
+  g.out = static_cast<double*>(out);
+  g.a = a;
+  g.c = c;
+  g.A = A;
+  g.T1 = T1;
+  g.T2 = T2;
+  g.nch = (A + e->width - 1) / e->width;
+  g.total = static_cast<long long>(ntiles) * g.nch * T1 * c * T2;
+  return e->launch(g, static_cast<cudaStream_t>(stream));
+}
+
+// F_0..F_M at n points T with the kernel's own Boys function: F is (M+1, n).
+extern "C" int eri_boys(int M, int n, const void* T, void* F, void* stream) {
+  if (M < 0 || M > qchem_eri::kMaxL || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return qchem_eri::kBoys[M](n, static_cast<const double*>(T), static_cast<double*>(F),
+                             static_cast<cudaStream_t>(stream));
+}
+#endif

@@ -101,12 +101,14 @@ def restricted_hartree_fock(
     system: MolecularSystem,
     config: Optional[HartreeFockConfig] = None,
     *,
-    device,
+    device="cuda",
 ) -> RestrictedHartreeFockOutput:
     """Run in-core RHF on ``device`` (reference entry point rhf.rs:32-35).
 
-    On a CUDA device the ERI tiles go through kernel 1 and every SCF pass's
-    matvec through kernel 2; on the CPU both take their plain twins.
+    The default is the card: on a CUDA device the ERI tiles go through
+    kernel 1 and every SCF pass's matvec through kernel 2. A run on the CPU
+    (both kernels' plain twins) must ask for it with ``device="cpu"``;
+    asking for CUDA where it is not available raises, with no fallback.
     """
     config = config or HartreeFockConfig()
     if config.fock_mode != "incore":
@@ -124,6 +126,11 @@ def restricted_hartree_fock(
         raise ValueError(f"RHF needs an even electron count, got {n_electrons}")
     nocc = n_electrons // 2
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU"
+        )
 
     timings: dict = {}
     t0 = time.perf_counter()

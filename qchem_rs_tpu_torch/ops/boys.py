@@ -10,7 +10,8 @@ The algorithm of ``qchem_rs_tpu/ops/boys.py::boys`` in PyTorch:
   F_0 in that range.
 
 The CUDA tile kernel (``csrc/eri_tile.cu``, device function ``boys``) runs
-the same three branches per point.
+the same three branches per point without a division in any loop
+(``eri_kernel.boys_on_card`` runs it on its own).
 """
 
 from __future__ import annotations

@@ -18,20 +18,24 @@ matmul in ``eri_tiled.ket_contract``).
 Replaces the three TPU kernels of ``qchem_rs_tpu/ops/eri_pallas.py``:
 ``_kernel_fused_e1`` (:205), ``_kernel_fused`` (:175) and ``_kernel_htab``
 (:191). Those split the chain differently per class only because of VMEM
-size and Mosaic's unroll limits; on the H100 one f64 kernel with runtime L
-serves every class pair with L = Lb + Lk <= 8 (every class of d-shell bases
-such as cc-pVDZ).
+size and Mosaic's unroll limits; on the H100 one f64 kernel template,
+instantiated for each (Lb, Lk) with Lb, Lk <= 4, serves every class pair of
+bases up to d shells such as cc-pVDZ (f-shell pair classes raise on CUDA).
 
-What bounds it on the H100: FP64 arithmetic and per-thread state. Each
-thread owns one (tile, t1, t2, ic) point and loops over the bra primitive
-pairs; per pair it evaluates Boys F_0..F_L, the R table (H <= 165 entries)
-and the A*S2 bra-contracted sums of S1 products. At dd|dd the R table and
-the products do not fit in registers, so R lives in thread-local memory
-(L1-cached) and the sums accumulate straight into the output, which each
-thread owns exclusively (no atomics). Reads of E1 and of the plans are
-uniform across a warp (threads of a warp share t1), so they broadcast.
-Making it fast (shared-memory R tables, FP64 tensor cores for the
-contraction) is later work.
+With primitive counts (``PrimCounts``: each pair's primitive pairs with
+nonzero E first, and their number), the kernel sums only over real bra
+primitive pairs and writes 0.0 for ket primitive pairs past a pair's count
+(their E2 is zero); the twin gives the same result by masking those ket
+entries, since zero-E bra primitive pairs add exactly zero to its sums.
+
+What bounds it on the H100: the write of its output, once only real
+primitive quartets are computed. The design (notes in the source): the
+kernel is a template on (Lb, Lk), so the R recursion and the (s1, s2)
+gather unroll into constant indices and R stays on chip (registers, or the
+thread's column of shared memory for L >= 5); one thread owns one (tile,
+alpha chunk, t1, ket point) and keeps its sums in registers over the whole
+bra loop, storing them once; Boys runs without a division in any loop
+(``boys_on_card`` runs it alone, to hold against ``boys.boys``).
 
 On CPU tensors ``bra_tiles`` runs the twin; on CUDA tensors it launches the
 kernel or raises.
@@ -40,26 +44,105 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from functools import lru_cache
 
 import numpy as np
 import torch
 
-from qchem_rs_tpu_torch.ops.eri import _r2_gather, _r2m_plan
-from qchem_rs_tpu_torch.ops.mcmurchie import _r_plan, hermite_components, nhermite, r_table_components
+from qchem_rs_tpu_torch.ops.eri import _r2m_plan
+from qchem_rs_tpu_torch.ops.mcmurchie import nhermite, r_table_components
 from qchem_rs_tpu_torch.utils.cuda import CudaKernel, stream_of
 
-#: highest total angular momentum Lb + Lk the CUDA kernel handles (its R
-#: table is a fixed 165-entry local array)
-KERNEL_MAX_L = 8
+#: highest angular momentum Lb (bra pair) or Lk (ket pair) the CUDA kernel
+#: is built for: one template instantiation per (Lb, Lk), every pair class
+#: up to (d, d)
+KERNEL_MAX_SIDE = 4
+#: highest order of the kernel's Boys function
+KERNEL_MAX_L = 2 * KERNEL_MAX_SIDE
+
+#: translation units of csrc/eri_tile.cu, one per (Lb, Lk), built by
+#: concurrent nvcc processes
+BUILD_PARTS = (KERNEL_MAX_SIDE + 1) ** 2
 
 _c = ctypes
 KERNEL = CudaKernel(
     "eri_tile.cu",
     "eri_bra_tiles",
-    [_c.c_int] * 10 + [_c.c_void_p] * 11,
+    [_c.c_int] * 8 + [_c.c_void_p] * 12,
+    parts=BUILD_PARTS,
 )
+#: the kernel's Boys function on its own, for holding it against ``boys``
+BOYS_PROBE = CudaKernel(
+    "eri_tile.cu",
+    "eri_boys",
+    [_c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p],
+    parts=BUILD_PARTS,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimCounts:
+    """Real primitive pairs of one padded class whose pairs list them first.
+
+    n (N,) int32: primitive pairs with nonzero E per pair. order (N/T, c*T)
+    int32: per block of T pairs (a tile), its ket points ``ic*T + t`` with
+    ic < n[pair] first, in ascending order, then the others; nreal (N/T,)
+    int32: how many of them are real."""
+
+    n: torch.Tensor
+    order: torch.Tensor
+    nreal: torch.Tensor
+    T: int
+
+
+def _nonzero_prims(E: torch.Tensor) -> torch.Tensor:
+    """(N, a) bool: primitive pairs whose E has a nonzero entry."""
+    return E.reshape(E.shape[0], E.shape[1], -1).ne(0).any(dim=-1)
+
+
+def compact_prims(E: torch.Tensor, p: torch.Tensor, P: torch.Tensor):
+    """(E, p, P) of a padded class with each pair's primitive pairs
+    reordered so that those with nonzero E come first (stable, so real
+    primitive pairs keep their order)."""
+    nz = _nonzero_prims(E)
+    perm = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
+    E = torch.take_along_dim(E, perm[:, :, None, None], dim=1)
+    p = torch.take_along_dim(p, perm, dim=1)
+    P = torch.take_along_dim(P, perm[:, :, None], dim=1)
+    return E.contiguous(), p.contiguous(), P.contiguous()
+
+
+def prim_counts(E: torch.Tensor, T: int) -> PrimCounts:
+    """The kernel's counts for a class compacted by ``compact_prims`` and
+    padded to a multiple of its tile edge T."""
+    N, c = E.shape[:2]
+    if N % T:
+        raise ValueError(f"{N} pairs are not a multiple of the tile edge {T}")
+    nz = _nonzero_prims(E)
+    n = nz.sum(dim=1)
+    if not torch.equal(nz, torch.arange(c, device=E.device)[None, :] < n[:, None]):
+        raise ValueError("primitive pairs with nonzero E must come first (compact_prims)")
+    real = nz.reshape(N // T, T, c).transpose(1, 2).reshape(N // T, c * T)  # [block, ic*T + t]
+    key = (~real).to(torch.int64) * (c * T) + torch.arange(c * T, device=E.device)
+    return PrimCounts(
+        n=n.to(torch.int32).contiguous(),
+        order=torch.argsort(key, dim=1).to(torch.int32).contiguous(),
+        nreal=real.sum(dim=1).to(torch.int32).contiguous(),
+        T=T,
+    )
+
+
+def all_prims(N: int, c: int, T: int, device) -> PrimCounts:
+    """Counts that take every primitive pair of a class of N pairs as real,
+    in their own order: what the kernel computes when no counts are given."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return PrimCounts(
+        n=torch.full((N,), c, **i32),
+        order=torch.arange(c * T, **i32).expand(N // T, c * T).contiguous(),
+        nreal=torch.full((N // T,), c * T, **i32),
+        T=T,
+    )
 
 
 def _tile_index(t: np.ndarray, T: int, device) -> torch.Tensor:
@@ -67,11 +150,13 @@ def _tile_index(t: np.ndarray, T: int, device) -> torch.Tensor:
     return torch.as_tensor(t[:, None] + np.arange(T)[None, :], dtype=torch.long, device=device)
 
 
-def bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2):
+def bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None):
     """The twin, the bra half of the JAX package's ``_tile_vals`` with a
     tile batch axis: R tables by the vectorized recursion, the fused R2m
     gather of ``_r2m_plan`` and one einsum for the bra contraction. Same
-    arguments and result as ``bra_tiles``."""
+    arguments and result as ``bra_tiles``: with ``ket`` counts, entries of
+    ket primitive pairs past a pair's count are 0.0 (``bra`` counts change
+    nothing here, since the bra sum over zero-E primitive pairs is exact)."""
     dev = E1.device
     nt = len(ti)
     N1, a, A, S1 = E1.shape
@@ -94,27 +179,16 @@ def bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2):
     R2m = R2m * torch.as_tensor(sign_m, dtype=R.dtype, device=dev)[None, :, None, None, None]
     E1m = E1[i1].permute(2, 4, 3, 0, 1).reshape(a * S1, A, nt, T1)  # ((a, s1), A, nt, T1)
     # contract (a, s1): -> (nt, A, (c, s2), T1, T2)
-    return torch.einsum("kAnx,kmnxy->nAmxy", E1m, R2m)
+    out = torch.einsum("kAnx,kmnxy->nAmxy", E1m, R2m)
+    if ket is None:
+        return out
+    real = torch.arange(c, device=dev)[None, :, None] < ket.n[i2].to(torch.long)[:, None, :]
+    S2 = nhermite(Lk)
+    out = out.reshape(nt, A, c, S2, T1, T2) * real[:, None, :, None, None, :]
+    return out.reshape(nt, A, c * S2, T1, T2)
 
 
-@lru_cache(maxsize=None)
-def _plans(Lb: int, Lk: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's int32 plan buffers on ``device``: rplan (5, H) = (PC
-    dimension, idx1, idx2, coefficient, order) per Hermite entry, and
-    r2plan = idx (S1*S2) followed by sign (S2) of the (s1, s2) gather."""
-    L = Lb + Lk
-    onehot, idx1, idx2, coef = _r_plan(L)
-    order = np.array([sum(s) for s in hermite_components(L)])
-    rplan = np.stack([onehot.argmax(axis=1), idx1, idx2, coef, order]).astype(np.int32)
-    idx, sign = _r2_gather(Lb, Lk)
-    r2plan = np.concatenate([idx.reshape(-1), sign]).astype(np.int32)
-    return (
-        torch.as_tensor(np.ascontiguousarray(rplan), device=device),
-        torch.as_tensor(r2plan, device=device),
-    )
-
-
-def _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2) -> None:
+def _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket) -> None:
     dev = E1.device
     for name, t in (("E1", E1), ("p1", p1), ("P1", P1), ("p2", p2), ("P2", P2)):
         if t.device != dev:
@@ -137,25 +211,39 @@ def _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2) -> None:
         raise ValueError("ti and tj must be 1-d and of equal length")
     if len(ti) and (ti.min() < 0 or tj.min() < 0 or ti.max() + T1 > N1 or tj.max() + T2 > N2):
         raise ValueError("a tile reaches outside its class")
+    if (bra is None) != (ket is None):
+        raise ValueError("give primitive counts for both classes or for neither")
+    if ket is not None:
+        if bra.n.shape != (N1,) or ket.n.shape != (N2,) or ket.order.shape != (N2 // T2, c * T2):
+            raise ValueError("primitive counts do not fit the classes")
+        if ket.T != T2 or (len(tj) and (tj % T2).any()):
+            raise ValueError(f"with counts, ket tiles must start at multiples of T2={T2}")
+        for t in (bra.n, ket.n, ket.order, ket.nreal):
+            if t.device != dev or t.dtype != torch.int32:
+                raise ValueError(f"primitive counts must be int32 on {dev}")
 
 
-def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2) -> torch.Tensor:
+def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None) -> torch.Tensor:
     """Bra-contracted ERI tiles, (ntiles, A, c*S2, T1, T2) float64.
 
     E1 (N1, a, A, S1), p1 (N1, a), P1 (N1, a, 3) hold the whole bra class and
     p2 (N2, c), P2 (N2, c, 3) the ket class, in the layouts of the JAX
     package's ``_tile_vals``; ``ti``/``tj`` are host integer arrays of tile
-    offsets. CPU tensors take the twin; CUDA tensors launch the kernel.
+    offsets. ``bra``/``ket`` are the classes' ``PrimCounts`` (both or
+    neither; without them every primitive pair counts as real, and the
+    kernel gets ``all_prims`` counts). CPU tensors take the twin; CUDA
+    tensors launch the kernel.
     """
-    _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2)
+    _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     dev = E1.device
     if dev.type == "cpu":
-        return bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2)
+        return bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if Lb + Lk > KERNEL_MAX_L:
+    if max(Lb, Lk) > KERNEL_MAX_SIDE:
         raise NotImplementedError(
-            f"the CUDA tile kernel covers Lb + Lk <= {KERNEL_MAX_L}, got {Lb + Lk}"
+            f"the CUDA tile kernel covers pair classes up to Lb, Lk <= {KERNEL_MAX_SIDE}, "
+            f"got ({Lb}, {Lk})"
         )
     N1, a, A, S1 = E1.shape
     c = p2.shape[1]
@@ -164,14 +252,29 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2) -> torch.Tensor:
     out = torch.empty((nt, A, c * S2, T1, T2), dtype=torch.float64, device=dev)
     if nt == 0:
         return out
-    rplan, r2plan = _plans(Lb, Lk, str(dev))
     ti_d = torch.as_tensor(np.asarray(ti, dtype=np.int32), device=dev)
     tj_d = torch.as_tensor(np.asarray(tj, dtype=np.int32), device=dev)
+    if ket is None:
+        bra, ket = all_prims(N1, a, T1, dev), all_prims(p2.shape[0], c, T2, dev)
     with torch.cuda.device(dev):
         KERNEL.launch(
-            Lb, Lk, a, c, A, S1, S2, T1, T2, nt,
+            Lb, Lk, a, c, A, T1, T2, nt,
             E1.data_ptr(), p1.data_ptr(), P1.data_ptr(), p2.data_ptr(), P2.data_ptr(),
-            ti_d.data_ptr(), tj_d.data_ptr(), rplan.data_ptr(), r2plan.data_ptr(),
-            out.data_ptr(), stream_of(out),
+            ti_d.data_ptr(), tj_d.data_ptr(), bra.n.data_ptr(), ket.order.data_ptr(),
+            ket.nreal.data_ptr(), out.data_ptr(), stream_of(out),
         )
     return out
+
+
+def boys_on_card(mmax: int, T: torch.Tensor) -> torch.Tensor:
+    """F_0..F_mmax at the points of the CUDA tensor T (1-d float64), by the
+    kernel's own device Boys function: (mmax+1, n), to hold against
+    ``boys.boys``."""
+    if T.device.type != "cuda" or T.dtype != torch.float64 or T.ndim != 1 or not T.is_contiguous():
+        raise ValueError("boys_on_card needs a contiguous 1-d float64 CUDA tensor")
+    if not 0 <= mmax <= KERNEL_MAX_L:
+        raise ValueError(f"mmax must lie in 0..{KERNEL_MAX_L}, got {mmax}")
+    F = torch.empty((mmax + 1, T.numel()), dtype=torch.float64, device=T.device)
+    with torch.cuda.device(T.device):
+        BOYS_PROBE.launch(mmax, T.numel(), T.data_ptr(), F.data_ptr(), stream_of(F))
+    return F

@@ -15,6 +15,9 @@ blocks into V2 by one indexed assignment.
 Tile sizes are the port's own: a class's pairs are padded to a multiple of
 its tile size min(32, next power of two of its pair count). Padded pairs
 carry E = 0 (contribute exactly zero) and p = 1, P = 0 (finite math).
+Each pair's primitive pairs are then reordered so that those with nonzero
+E come first (``eri_kernel.compact_prims``), and kernel 1 gets their
+counts, so it computes only real primitive quartets.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri import PairGroup, build_pair_groups
-from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles, bra_tiles_plain
+from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles, bra_tiles_plain, compact_prims, prim_counts
 from qchem_rs_tpu_torch.ops.fock import schwarz_bounds
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
@@ -138,6 +141,15 @@ def _tile_list(m1, m2, T1, T2, bound1, bound2, threshold, same):
     )
 
 
+def _quartet_flops(L: int, S1: int, S2: int, A: int) -> float:
+    """FLOPs of one primitive quartet in the bra half of ``_tile_flops``'s
+    model: pair geometry, Boys, powers and prefactor, the R recursion, the
+    (s1, s2) signs and the bra Hermite->Cartesian contraction."""
+    H = nhermite(L)
+    return (12.0 + (24.0 + 3.0 * L) + (2.0 * (L + 1) + 8.0) + (3.0 * H * L + 5.0 * H)
+            + S1 * S2 + 2.0 * S1 * S2 * A)
+
+
 def _tile_flops(m1: _ClassMeta, m2: _ClassMeta, T1: int, T2: int) -> float:
     """Analytic FLOPs of one grid tile (the JAX package's model, so rates
     compare across implementations): elementwise pair geometry, Boys,
@@ -229,7 +241,9 @@ class TiledEriEngine:
         self.bounds = bounds
         self.layout = PairSpaceLayout(system, groups)
         metas = self.layout.metas
-        self._padded = [pad_group(g, m.npad) for g, m in zip(groups, metas)]
+        self._padded = [compact_prims(*pad_group(g, m.npad)) for g, m in zip(groups, metas)]
+        #: kernel 1's primitive counts per class
+        self._counts = [prim_counts(E, m.tile) for (E, _, _), m in zip(self._padded, metas)]
         #: (i1, i2, ti, tj) per class pair with at least one kept tile
         self._tasks = []
         for i1, m1 in enumerate(metas):
@@ -267,7 +281,8 @@ class TiledEriEngine:
         m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
         E1, p1, P1 = self._padded[i1]
         _, p2, P2 = self._padded[i2]
-        return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile)
+        return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile,
+                  self._counts[i1], self._counts[i2])
 
     def build(self) -> torch.Tensor:
         """All screened tiles of all class pairs into V2 (upper class
@@ -293,6 +308,25 @@ class TiledEriEngine:
             _tile_flops(metas[i1], metas[i2], metas[i1].tile, metas[i2].tile) * len(ti)
             for i1, i2, ti, _ in self._tasks
         )
+
+    def bra_kernel_work(self) -> tuple[float, float]:
+        """(bytes, FLOPs) that kernel 1 must move and compute over one
+        ``build()``: each class's E, p, P read once plus every output
+        written once; ``_quartet_flops`` over the real primitive quartets
+        (nonzero E on both sides) of every executed tile."""
+        metas = self.layout.metas
+        n = [c.n.cpu().numpy().astype(np.float64) for c in self._counts]
+        nbytes = sum(8.0 * (E.numel() + p.numel() + P.numel()) for E, p, P in self._padded)
+        flops = 0.0
+        for i1, i2, ti, tj in self._tasks:
+            m1, m2 = metas[i1], metas[i2]
+            Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
+            S2 = nhermite(Lk)
+            nbytes += 8.0 * len(ti) * m1.A * m2.a * S2 * m1.tile * m2.tile
+            rows = n[i1][ti[:, None] + np.arange(m1.tile)].sum(axis=1)
+            cols = n[i2][tj[:, None] + np.arange(m2.tile)].sum(axis=1)
+            flops += float((rows * cols).sum()) * _quartet_flops(Lb + Lk, nhermite(Lb), S2, m1.A)
+        return nbytes, flops
 
     def finish_terms(self, V2: torch.Tensor) -> torch.Tensor:
         """(n^2, n^2) operator terms[ij, kl] = (ij|kl) - 1/2 (ik|jl)

@@ -9,12 +9,16 @@ products and a tree reduction because the TPU has no f64. The H100 has
 native FP64, so the port keeps terms as one f64 matrix with no split and no
 padding.
 
-What bounds it on the H100: device-memory bandwidth. It reads all of terms
-once per pass (benzene/cc-pVDZ: m = 14400, 1.66 GB) for 2 FLOPs per 8
-bytes. The design streams each row exactly once: one warp per output row,
-16-byte (double2) loads along the row (8-byte loads when the row length is
-odd), each lane keeping a partial sum, then a warp-shuffle reduction. The
-vector d (115 KB at benzene) stays in L2/L1 for all warps.
+What bounds it on the H100: device-memory bandwidth, 2 FLOPs per 8-byte
+element. terms is symmetric (``finish_terms`` gathers both halves from the
+mirrored V2, so it is symmetric to rounding; tests/test_torch_eri.py holds
+it to 1e-15 of its largest entry), so the
+kernel reads only the 64 x 64 blocks on and above the diagonal and uses
+each off-diagonal block twice, G_I += B d_J and G_J += B^T d_I: half the
+bytes of a full read (0.83 GB instead of 1.66 GB at benzene/cc-pVDZ,
+m = 14400). Each warp owns whole blocks of a persistent grid, streams
+them with L1-bypassing loads and adds its row and column sums into
+G with FP64 atomics (so G varies from run to run in the last bits).
 
 On CPU tensors ``matvec`` runs the twin; on CUDA tensors it launches the
 kernel or raises.
@@ -35,13 +39,34 @@ KERNEL = CudaKernel(
 )
 
 
+#: block edge of the kernel's half read
+BLOCK = 64
+
+
 def matvec_plain(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """The twin: terms @ d."""
     return terms @ d
 
 
+def matvec_upper_plain(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """What the kernel computes for any square ``terms``: the product with
+    its block upper triangle (BLOCK x BLOCK blocks on and above the
+    diagonal) mirrored. Equal to ``matvec_plain`` for a symmetric terms."""
+    m = terms.shape[0]
+    blk = torch.arange(m, device=terms.device) // BLOCK
+    below = blk[:, None] > blk[None, :]  # blocks strictly below the diagonal
+    return torch.where(below, terms.T, terms) @ d
+
+
 def matvec(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """G = terms @ d for square float64 ``terms`` (m, m) and ``d`` (m,)."""
+    """G = terms @ d for a symmetric square float64 ``terms`` (m, m) and
+    ``d`` (m,).
+
+    Precondition: terms is symmetric. The kernel reads only the block upper
+    triangle and computes the product with it mirrored
+    (``matvec_upper_plain``); checking symmetry would read the whole matrix,
+    so the wrapper does not. The main path's terms is symmetric to rounding
+    (tests/test_torch_eri.py shows it)."""
     if terms.dtype != torch.float64 or d.dtype != torch.float64:
         raise TypeError(f"matvec needs float64, got {terms.dtype} and {d.dtype}")
     if terms.ndim != 2 or terms.shape[0] != terms.shape[1] or d.shape != (terms.shape[0],):
@@ -55,10 +80,8 @@ def matvec(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         return matvec_plain(terms, d)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if terms.data_ptr() % 16 or d.data_ptr() % 16:
-        raise ValueError("terms and d must be 16-byte aligned")
     m = terms.shape[0]
-    g = torch.empty(m, dtype=torch.float64, device=dev)
+    g = torch.zeros(m, dtype=torch.float64, device=dev)  # the kernel adds into G
     with torch.cuda.device(dev):
         KERNEL.launch(m, terms.data_ptr(), d.data_ptr(), g.data_ptr(), stream_of(g))
     return g

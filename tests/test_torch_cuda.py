@@ -53,7 +53,44 @@ def test_eri_kernel_matches_twin(cuda, Lb, Lk):
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
 
 
-@pytest.mark.parametrize("m", [150, 625, 14400])
+@pytest.mark.parametrize("Lb,Lk", [(0, 0), (1, 0), (1, 1), (2, 2), (3, 1), (0, 4), (4, 4)])
+def test_eri_kernel_ragged_counts_match_twin(cuda, Lb, Lk):
+    # zero-E primitive pairs interleaved before compaction, counts 1..a,
+    # one bra pair all zero: the kernel sums only real primitive pairs and
+    # writes zeros for ket primitive pairs past a pair's count
+    rng = np.random.default_rng(100 + Lb * 5 + Lk)
+    a, c, T = [9, 4, 3, 2, 1][Lb], [9, 4, 3, 2, 1][Lk], 32
+    A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+    E1 = rng.standard_normal((2 * T, a, A, nhermite(Lb)))
+    E2 = rng.standard_normal((2 * T, c, 1, 1))
+    for E, n in ((E1, a), (E2, c)):
+        for i in range(2 * T):
+            E[i, rng.permutation(n)[: n - rng.integers(1, n + 1)]] = 0.0
+    E1[-1] = 0.0
+    bra = eri_kernel.compact_prims(*(torch.tensor(x, device=cuda) for x in (
+        E1, rng.uniform(0.3, 8.0, (2 * T, a)), rng.standard_normal((2 * T, a, 3)) * 1.5)))
+    E2, p2, P2 = eri_kernel.compact_prims(*(torch.tensor(x, device=cuda) for x in (
+        E2, rng.uniform(0.3, 8.0, (2 * T, c)), rng.standard_normal((2 * T, c, 3)) * 1.5)))
+    counts = eri_kernel.prim_counts(bra[0], T), eri_kernel.prim_counts(E2, T)
+    ti, tj = np.array([0, T, T]), np.array([T, 0, T])
+    before = eri_kernel.KERNEL.launches
+    out = eri_kernel.bra_tiles(Lb, Lk, *bra, p2, P2, ti, tj, T, T, *counts)
+    ref = eri_kernel.bra_tiles_plain(Lb, Lk, *bra, p2, P2, ti, tj, T, T, *counts)
+    torch.cuda.synchronize()
+    assert eri_kernel.KERNEL.launches == before + 1
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+def test_kernel_boys_matches_boys(cuda):
+    from qchem_rs_tpu_torch.ops.boys import boys
+
+    T = torch.linspace(0.0, 50.0, 20001, dtype=torch.float64, device=cuda)
+    for M in range(eri_kernel.KERNEL_MAX_L + 1):
+        ref = boys(M, T)
+        assert float(((eri_kernel.boys_on_card(M, T) - ref).abs() / ref.abs()).max()) <= 1e-14
+
+
+@pytest.mark.parametrize("m", [64, 65, 150, 625, 14400, 14401])
 def test_fock_matvec_matches_twin(cuda, m):
     gen = torch.Generator(device=cuda).manual_seed(m)
     T = torch.randn((m, m), generator=gen, dtype=torch.float64, device=cuda)

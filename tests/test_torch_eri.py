@@ -21,13 +21,20 @@ from qchem_rs_tpu.ops.eri_tiled import TiledEriEngine as JaxEngine
 from qchem_rs_tpu.ops.eri_tiled import _tile_vals as _jax_tile_vals_eager
 from qchem_rs_tpu.utils.basis import BasisSet as JaxBasisSet
 from qchem_rs_tpu.utils.system import MolecularSystem as JaxSystem
-from qchem_rs_tpu_torch.ops import eri_kernel
+from qchem_rs_tpu_torch.ops import eri_kernel, eri_tiled, fock_matvec
 from qchem_rs_tpu_torch.ops.angular import ncart
-from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, _tile_vals, mirror_inplace, pad_group
+from qchem_rs_tpu_torch.ops.eri_tiled import (
+    TiledEriEngine,
+    _tile_vals,
+    ket_contract,
+    mirror_inplace,
+    pad_group,
+)
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.utils.basis import BasisSet
 from qchem_rs_tpu_torch.utils.interop import pair_group_from_numpy, to_tensor
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
@@ -87,29 +94,71 @@ def test_bra_tiles_cpu_takes_twin_and_checks_inputs():
         eri_kernel.bra_tiles(2, 2, E1, p1, P1, p2, P2, ti, tj, 8, 4)
 
 
-def test_mirror_inplace_fills_lower_triangle():
+@pytest.mark.parametrize("block", [1, 5, 8, 36, 37, 64])
+def test_mirror_inplace_fills_lower_triangle(block):
+    # blocks that divide the matrix, leave a ragged edge, or exceed it
     rng = np.random.default_rng(5)
     full = rng.standard_normal((37, 37))
     full = full + full.T
     V2 = torch.tensor(np.triu(full))
-    out = mirror_inplace(V2, block=8)
+    out = mirror_inplace(V2, block=block)
     assert out is V2
     np.testing.assert_array_equal(out.numpy(), full)
 
 
+def _meta(npairs, tile):
+    npad = tile * -(-npairs // tile)
+    return eri_tiled._ClassMeta(la=0, lb=0, A=1, npairs=npairs, npad=npad, tile=tile,
+                                row_base=0, a=1)
+
+
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("threshold", [None, 1e-6, 1e-2, 0.5])
+def test_tile_list_matches_pairwise_screening(threshold, same):
+    # a tile is kept when some real pair of its rows and some of its
+    # columns have a Schwarz product above the threshold; in a diagonal
+    # class block, tiles wholly below the diagonal are left to the mirror
+    rng = np.random.default_rng(7)
+    m1 = _meta(29, 8)
+    m2 = m1 if same else _meta(21, 4)
+    b1 = 10.0 ** rng.uniform(-9, 0, m1.npairs)
+    b2 = b1 if same else 10.0 ** rng.uniform(-9, 0, m2.npairs)
+    bounds = (None, None) if threshold is None else (b1, b2)
+    ti, tj, tb = eri_tiled._tile_list(m1, m2, m1.tile, m2.tile, *bounds, threshold, same)
+    want = []
+    for i in range(0, m1.npairs, m1.tile):
+        for j in range(0, m2.npairs, m2.tile):
+            if same and j + m2.tile <= i:
+                continue
+            top = max(b1[p] * b2[q] for p in range(i, min(i + m1.tile, m1.npairs))
+                      for q in range(j, min(j + m2.tile, m2.npairs)))
+            if threshold is None:
+                want.append((i, j, 1.0))
+            elif top > threshold:
+                want.append((i, j, top))
+    assert [(int(a), int(b)) for a, b in zip(ti, tj)] == [(i, j) for i, j, _ in want]
+    np.testing.assert_allclose(tb, [b for _, _, b in want], rtol=1e-15, atol=0)
+
+
 @pytest.fixture(scope="module")
-def water_631gs():
-    """JAX and port tiled engines on water/6-31G* (d shells), screened at
+def water_631gs_port():
+    """The port's tiled engine on water/6-31G* (d shells), screened at
     1e-12 as the RHF default."""
-    jax_sys = JaxSystem.load(
-        os.path.join(DATA, "mol", "water.json"),
-        JaxBasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")),
-    )
     port_sys = MolecularSystem.load(
         os.path.join(DATA, "mol", "water.json"),
         BasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")),
     )
-    return JaxEngine(jax_sys, 1e-12), TiledEriEngine(port_sys, 1e-12, device="cpu")
+    return TiledEriEngine(port_sys, 1e-12, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def water_631gs(water_631gs_port):
+    """JAX and port tiled engines on water/6-31G*, screened at 1e-12."""
+    jax_sys = JaxSystem.load(
+        os.path.join(DATA, "mol", "water.json"),
+        JaxBasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")),
+    )
+    return JaxEngine(jax_sys, 1e-12), water_631gs_port
 
 
 def test_pair_groups_and_bounds_match_jax(water_631gs):
@@ -151,9 +200,185 @@ def test_twin_matches_jax_on_jax_pair_tensors(water_631gs):
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-12
 
 
-def test_finish_terms_matches_jax(water_631gs):
-    jax_eng, port_eng = water_631gs
+@pytest.fixture(scope="module")
+def water_631gs_terms(water_631gs_port):
+    """The port's RHF operator terms on water/6-31G*."""
+    return water_631gs_port.finish_terms(water_631gs_port.build())
+
+
+def test_finish_terms_matches_jax(water_631gs, water_631gs_terms):
+    jax_eng, _ = water_631gs
     ref = np.asarray(jax_eng.finish_terms(jax_eng.build()))
-    out = port_eng.finish_terms(port_eng.build()).numpy()
+    out = water_631gs_terms.numpy()
     assert out.shape == ref.shape == (19 * 19, 19 * 19)
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-11
+
+
+def test_finish_terms_is_symmetric_for_the_half_read(water_631gs_terms):
+    # kernel 2 reads only the block upper triangle of terms: the main
+    # path's terms must be symmetric to rounding, and the product with its
+    # upper triangle mirrored must equal terms @ d
+    T = water_631gs_terms
+    assert float((T - T.T).abs().max()) <= 1e-15 * float(T.abs().max())
+    d = torch.tensor(np.random.default_rng(2).normal(size=T.shape[0]))
+    ref = T @ d
+    out = fock_matvec.matvec_upper_plain(T, d)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+def test_compacted_prims_come_first_with_their_counts(water_631gs_port):
+    port_eng = water_631gs_port
+    interleaved = []
+    for g, m, (E, p, P), counts in zip(port_eng.layout.groups, port_eng.layout.metas,
+                                       port_eng._padded, port_eng._counts):
+        nz = E.reshape(E.shape[0], E.shape[1], -1).ne(0).any(-1)
+        n = counts.n.to(torch.long)
+        assert counts.n.dtype == torch.int32 and counts.n.shape == (m.npad,)
+        assert torch.equal(nz, torch.arange(m.a)[None, :] < n[:, None])
+        assert int(n[: m.npairs].min()) >= 1 and not bool(n[m.npairs:].any())
+        # before compaction: were zero-E primitive pairs interleaved?
+        nz0 = pad_group(g, m.npad)[0].reshape(m.npad, m.a, -1).ne(0).any(-1)
+        assert torch.equal(nz0.sum(1), n)
+        interleaved.append(bool((nz0[:, 1:] & ~nz0[:, :-1]).any()))
+        # each tile block's ket points: the real ones first, ic-major
+        T = m.tile
+        for kb in range(m.npad // T):
+            codes = counts.order[kb].to(torch.long)
+            nreal = int(counts.nreal[kb])
+            t, ic = codes % T, codes // T
+            real = ic < n[kb * T + t]
+            assert nreal == int(n[kb * T:(kb + 1) * T].sum())
+            assert bool(real[:nreal].all()) and not bool(real[nreal:].any())
+            assert torch.equal(codes[:nreal], codes[:nreal].sort().values)
+    assert interleaved[:3] == [True, True, True]  # (s,s), (p,s), (p,p) of 6-31G*
+
+
+def test_twin_on_compacted_prims_matches_original_order(water_631gs_port):
+    port_eng = water_631gs_port
+    metas, groups = port_eng.layout.metas, port_eng.layout.groups
+    for i1, i2, ti, tj in port_eng._tasks[:: max(1, len(port_eng._tasks) // 6)]:
+        m1, m2 = metas[i1], metas[i2]
+        Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
+        E1, p1, P1 = pad_group(groups[i1], m1.npad)
+        E2, p2, P2 = pad_group(groups[i2], m2.npad)
+        ref = ket_contract(eri_kernel.bra_tiles_plain(
+            Lb, Lk, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile), E2, tj, m2.tile)
+        out = ket_contract(port_eng.bra_batch(i1, i2, ti, tj), port_eng._padded[i2][0],
+                           tj, m2.tile)
+        assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-14
+
+
+def test_batches_cover_every_tile_once(monkeypatch):
+    # 4-pair tiles and small batches: each class pair's tiles come in
+    # order, each once, over more batches than class pairs
+    monkeypatch.setattr(eri_tiled, "TILE", 4)
+    monkeypatch.setattr(eri_tiled, "BATCH_BYTES", 1 << 16)
+    eng = TiledEriEngine(MolecularSystem.load(
+        os.path.join(DATA, "mol", "water.json"),
+        BasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")),
+    ), 1e-12, device="cpu")
+    assert max(len(ti) for _, _, ti, _ in eng._tasks) > 1
+    got = {}
+    nbatches = 0
+    for i1, i2, ti, tj in eng.batches():
+        nbatches += 1
+        got.setdefault((i1, i2), []).extend(zip(ti.tolist(), tj.tolist()))
+    assert nbatches > len(eng._tasks)
+    assert got == {(i1, i2): list(zip(ti.tolist(), tj.tolist())) for i1, i2, ti, tj in eng._tasks}
+
+
+def test_bra_kernel_work_counts_real_quartets(water_631gs_port):
+    # bytes: the classes read once and every bra_tiles output
+    # (nt, A, c*S2, T1, T2) written once; FLOPs: the per-quartet model over
+    # the primitive quartets with nonzero E on both sides
+    eng = water_631gs_port
+    metas = eng.layout.metas
+    real = [E.reshape(E.shape[0], E.shape[1], -1).ne(0).any(-1).sum(1).numpy()
+            for E, _, _ in eng._padded]
+    nbytes = sum(8 * (E.numel() + p.numel() + P.numel()) for E, p, P in eng._padded)
+    flops = 0.0
+    for i1, i2, ti, tj in eng._tasks:
+        m1, m2 = metas[i1], metas[i2]
+        Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
+        nbytes += 8 * len(ti) * m1.A * m2.a * nhermite(Lk) * m1.tile * m2.tile
+        q = eri_tiled._quartet_flops(Lb + Lk, nhermite(Lb), nhermite(Lk), m1.A)
+        for i, j in zip(ti, tj):
+            flops += q * int(real[i1][i:i + m1.tile].sum()) * int(real[i2][j:j + m2.tile].sum())
+    got_bytes, got_flops = eng.bra_kernel_work()
+    assert got_bytes == nbytes
+    assert abs(got_flops - flops) <= 1e-12 * flops
+    padded = sum(eri_tiled._quartet_flops(metas[i1].la + metas[i1].lb + metas[i2].la + metas[i2].lb,
+                                          nhermite(metas[i1].la + metas[i1].lb),
+                                          nhermite(metas[i2].la + metas[i2].lb), metas[i1].A)
+                 * len(ti) * metas[i1].tile * metas[i2].tile * metas[i1].a * metas[i2].a
+                 for i1, i2, ti, _ in eng._tasks)
+    assert got_flops < padded  # compaction leaves out the padded quartets
+
+
+def test_prim_counts_need_compacted_prims():
+    rng = np.random.default_rng(4)
+    E = torch.tensor(rng.normal(size=(8, 3, 2, 4)))
+    E[0, 0] = 0.0  # a zero-E primitive pair ahead of real ones
+    p, P = torch.ones(8, 3), torch.zeros(8, 3, 3)
+    with pytest.raises(ValueError, match="first"):
+        eri_kernel.prim_counts(E, 4)
+    Ec, pc, _ = eri_kernel.compact_prims(E, p.double(), P.double())
+    assert torch.equal(Ec[0, :2], E[0, 1:]) and bool((Ec[0, 2] == 0).all())
+    counts = eri_kernel.prim_counts(Ec, 4)
+    assert counts.n.tolist() == [2] + [3] * 7 and counts.nreal.tolist() == [11, 12]
+
+
+def test_all_prims_are_the_counts_of_a_full_class():
+    # what the kernel gets when bra_tiles is called without counts: the
+    # counts of a class whose primitive pairs are all real, which change
+    # nothing in the result
+    E1, p1, P1, E2, p2, P2 = (to_tensor(x, "cpu") for x in _random_tile(1, 2, 4, 3, 8, 4, seed=6))
+    E1, p1, P1 = torch.cat([E1, E1]), torch.cat([p1, p1]), torch.cat([P1, P1])
+    for E, T in ((E1, 8), (E2, 4)):
+        want, got = eri_kernel.prim_counts(E, T), eri_kernel.all_prims(E.shape[0], E.shape[1], T, "cpu")
+        for name in ("n", "order", "nreal"):
+            assert torch.equal(getattr(got, name), getattr(want, name))
+    ti, tj = np.array([0, 8]), np.array([0, 0])
+    ref = eri_kernel.bra_tiles(1, 2, E1, p1, P1, p2, P2, ti, tj, 8, 4)
+    out = eri_kernel.bra_tiles(1, 2, E1, p1, P1, p2, P2, ti, tj, 8, 4,
+                               eri_kernel.all_prims(16, 4, 8, "cpu"), eri_kernel.all_prims(4, 3, 4, "cpu"))
+    assert torch.equal(out, ref)
+
+
+def _ragged_class(L, n, T, rng):
+    """A padded class of 2T pairs of total angular momentum L with n
+    primitive pairs each: zero-E primitive pairs interleaved, 1..n real per
+    pair, the last pair all zero (a padding pair)."""
+    A = ncart(L - L // 2) * ncart(L // 2)
+    E = rng.standard_normal((2 * T, n, A, nhermite(L)))
+    for i in range(2 * T):
+        E[i, rng.permutation(n)[: n - rng.integers(1, n + 1)]] = 0.0
+    E[-1] = 0.0
+    return [torch.tensor(x) for x in (
+        E, rng.uniform(0.3, 8.0, (2 * T, n)), rng.standard_normal((2 * T, n, 3)) * 1.5)]
+
+
+@pytest.mark.parametrize("Lk", range(eri_kernel.KERNEL_MAX_SIDE + 1))
+@pytest.mark.parametrize("Lb", range(eri_kernel.KERNEL_MAX_SIDE + 1))
+def test_twin_with_ragged_counts_matches_original_order(Lb, Lk):
+    # kernel 1's count contract on the CPU, for every (Lb, Lk) the kernel is
+    # built for: after compaction, bra_tiles with counts writes exact zeros
+    # past each ket pair's count, and the contracted integrals equal those
+    # of the original primitive order
+    rng = np.random.default_rng(200 + 5 * Lb + Lk)
+    T, sizes = 4, [5, 4, 3, 2, 2]
+    E1, p1, P1 = _ragged_class(Lb, sizes[Lb], T, rng)
+    E2, p2, P2 = _ragged_class(Lk, sizes[Lk], T, rng)
+    ti, tj = np.array([0, T, T]), np.array([T, 0, T])
+    ref = ket_contract(eri_kernel.bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T, T),
+                       E2, tj, T)
+    bra, ket = eri_kernel.compact_prims(E1, p1, P1), eri_kernel.compact_prims(E2, p2, P2)
+    counts = eri_kernel.prim_counts(bra[0], T), eri_kernel.prim_counts(ket[0], T)
+    out = eri_kernel.bra_tiles(Lb, Lk, *bra, *ket[1:], ti, tj, T, T, *counts)
+    c, S2 = sizes[Lk], nhermite(Lk)
+    n2 = counts[1].n.to(torch.long)[torch.as_tensor(tj[:, None] + np.arange(T))]  # (nt, T2)
+    past = torch.arange(c)[None, :, None] >= n2[:, None, :]  # (nt, c, T2)
+    per_prim = out.reshape(len(ti), -1, c, S2, T, T).permute(0, 2, 5, 1, 3, 4)
+    assert bool((per_prim[past] == 0).all())
+    out = ket_contract(out, ket[0], tj, T)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-13

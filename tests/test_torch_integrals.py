@@ -1,7 +1,9 @@
 """Port parity, one-electron layer: the Boys function and S, T, V of
 ``qchem_rs_tpu_torch`` against the JAX package on the CPU, same inputs."""
 
+import math
 import os
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -15,8 +17,51 @@ from qchem_rs_tpu_torch.ops import boys as port_boys
 from qchem_rs_tpu_torch.ops import one_electron as port_one
 from qchem_rs_tpu_torch.utils.basis import BasisSet
 from qchem_rs_tpu_torch.utils.interop import system_from_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
+
+
+def kummer_coefficients(mmax: int) -> list[float]:
+    """c_i = prod_{k=0..i} 1/(2 mmax + 2k + 1), i = 0..series_terms(mmax):
+    the Kummer series at mmax as a polynomial in 2T, the products the CUDA
+    kernel builds at compile time (``KummerCoef``)."""
+    coefs, c = [], 1.0
+    for k in range(port_boys.series_terms(mmax) + 1):
+        c *= 1.0 / (2 * mmax + 2 * k + 1)
+        coefs.append(c)
+    return coefs
+
+
+def boys_reciprocal(mmax: int, T: torch.Tensor) -> torch.Tensor:
+    """F_0..F_mmax at T in the CUDA kernel's arithmetic, shape
+    (mmax+1,) + T.shape: the branches of ``boys`` with every division in a
+    loop replaced by a product with a constant reciprocal (the series by
+    Horner's rule on ``kummer_coefficients``), and one 1/T per point."""
+    Tc = torch.clamp(T, min=1e-30)
+    invT = 1.0 / Tc
+    F0 = 0.5 * torch.sqrt(math.pi * invT) * torch.erf(torch.sqrt(Tc))
+    if mmax == 0:
+        taylor = [1.0 / (math.factorial(k) * (2 * k + 1)) for k in range(7)]
+        f0_taylor = torch.full_like(T, taylor[6])
+        for k in range(5, -1, -1):
+            f0_taylor = taylor[k] - T * f0_taylor
+        return torch.where(T < 0.01, f0_taylor, F0)[None]
+    expT = torch.exp(-T)
+    fs_big = [F0]
+    for m in range(mmax):
+        fs_big.append(((2.0 * m + 1.0) * fs_big[-1] - expT) * (0.5 * invT))
+    x = 2.0 * T
+    coefs = kummer_coefficients(mmax)
+    poly = torch.full_like(T, coefs[-1])
+    for c in reversed(coefs[:-1]):
+        poly = poly * x + c
+    fs_small = [expT * poly]
+    for m in range(mmax, 0, -1):
+        fs_small.append((x * fs_small[-1] + expT) * (1.0 / (2 * m - 1)))
+    fs_small = fs_small[::-1]
+    use_small = T <= mmax + 1.5
+    return torch.stack([torch.where(use_small, s, b) for s, b in zip(fs_small, fs_big)], dim=0)
 
 
 @pytest.mark.parametrize("order", range(9))
@@ -34,6 +79,31 @@ def test_boys_matches_jax(order):
     out = port_boys.boys(order, torch.tensor(T)).numpy()
     assert out.shape == ref.shape == (order + 1, T.size)
     assert np.max(np.abs(out - ref) / np.abs(ref)) <= 1e-13
+
+
+@pytest.mark.parametrize("order", range(9))
+def test_boys_reciprocal_matches_boys(order):
+    # the CUDA kernel's division-free Boys arithmetic against the port's
+    # boys over T in [0, 50], m <= 8
+    T = torch.cat([torch.linspace(0.0, 50.0, 5001, dtype=torch.float64),
+                   torch.tensor([0.0, 1e-12, 0.0099999, 0.01, order + 1.5], dtype=torch.float64)])
+    ref = port_boys.boys(order, T)
+    out = boys_reciprocal(order, T)
+    assert out.shape == ref.shape == (order + 1, T.numel())
+    assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-14
+
+
+@pytest.mark.parametrize("order", range(9))
+def test_kummer_coefficients_are_the_series_products(order):
+    # the constants of the kernel's Horner series: c_k = prod_{i<=k}
+    # 1/(2 order + 2i + 1), within two roundings per factor of the exact
+    # product (and one for its conversion to float)
+    coefs = kummer_coefficients(order)
+    assert len(coefs) == port_boys.series_terms(order) + 1
+    exact = Fraction(1)
+    for k, c in enumerate(coefs):
+        exact /= 2 * order + 2 * k + 1
+        assert abs(c - float(exact)) <= (k + 2) * 2.3e-16 * float(exact)
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from qchem_rs_tpu import HartreeFockConfig as JaxConfig
 from qchem_rs_tpu import restricted_hartree_fock as jax_rhf
@@ -17,6 +18,7 @@ from qchem_rs_tpu_torch import BasisSet, HartreeFockConfig, MolecularSystem, res
 from qchem_rs_tpu_torch import cli
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.utils.interop import system_from_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
@@ -117,3 +119,10 @@ def test_rhf_rejects_unported_options():
                 HartreeFockConfig(level_shift=0.1)):
         with pytest.raises(NotImplementedError):
             restricted_hartree_fock(system, cfg, device="cpu")
+
+
+def test_rhf_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the test covers the machine without it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restricted_hartree_fock(_port_system("hydrogen", "STO-3G"), HartreeFockConfig())
