@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the smoke run
-    python3 chip_smoke.py --profile    # plus a torch.profiler window over one
-                                       # warm benzene run (device time by kernel)
+    python3 chip_smoke.py --profile    # plus torch.profiler windows over one warm
+                                       # benzene run and one naphthalene direct
+                                       # pass (device time by kernel), and the
+                                       # direct pass at three batch sizes
 
 Builds both hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
 nvcc process started together) and prints ptxas's registers, stack frame
@@ -13,10 +15,17 @@ primitive counts, its Boys function against ``boys``, kernel 2 at m = 150,
 benzene/cc-pVDZ (the headline configuration: diag_rms 1e-8), checks the
 energies against their anchors, shows that the benzene run went through
 both kernels, and times each kernel against its twin, its bound and the
-library call at the benzene shapes. Every phase fails loudly; the script
-exits non-zero on any failed check and when CUDA is not available. The
-line before the last is a JSON object with one entry per kernel; the last
-line is a JSON object naming the device.
+library call at the benzene shapes. Then the scale path: RHF on
+naphthalene/cc-pVDZ (SAD guess, diag_rms 1e-8) through the in-core, pair,
+lean pair and direct Fock modes and a pair run from the Hückel guess,
+each against its anchor, with its peak device memory and the launches of
+each kernel; kernel 2 on the pair-space V2f (m = 19136) and W @ dK timed
+against their bounds; kernel 1 and the digestion per direct pass; and UHF
+on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Every
+phase fails loudly; the script exits non-zero on any failed check and
+when CUDA is not available. Two lines before the last are JSON objects:
+the launches of every path, and one entry per kernel (at the benzene
+in-core shapes); the last line is a JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -35,6 +44,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WATER_E = -76.02713907  # water/cc-pVDZ fixed point (diag_rms 1e-10, JAX package on CPU)
 BENZENE_E = -230.72299497  # benzene/cc-pVDZ (diag_rms 1e-8, JAX package; noisy to ~1e-7)
 BENZENE_E_CARD = -230.7229951380  # the port's benzene/cc-pVDZ value on an H100
+# naphthalene/cc-pVDZ, Cartesian, diag_rms 1e-8: a TPU run of the JAX
+# package (README), noisy to ~1e-7 as the benzene anchor
+NAPHTHALENE_E = -383.37852231
+# OH doublet/6-31G fixed point (JAX package on the CPU, tests/test_scf_uhf.py:83)
+OH_E = -75.363169916
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
@@ -255,9 +269,9 @@ def time_engine_setup(system) -> None:
           f"compaction and counts {', '.join(f'{t:.4f}' for t in compact)} s", flush=True)
 
 
-def profile_benzene(Q, system, cfg) -> None:
-    """torch.profiler over one warm benzene run: device time by kernel and
-    the busy share of the profiled wall time. Only the device's own events
+def device_profile(label: str, fn) -> None:
+    """torch.profiler over one call of ``fn``: device time by kernel and the
+    busy share of the profiled wall time. Only the device's own events
     (kernels, copies, memsets) count: the device time of an aten row is that
     of the kernels beneath it, which are events of their own. The busy time
     is the union of their intervals, so kernels that overlap count once."""
@@ -266,11 +280,12 @@ def profile_benzene(Q, system, cfg) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+        out = fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        print("profile benzene: the profiler traced no device events: busy share not measured",
+        print(f"profile {label}: the profiler traced no device events: busy share not measured",
               flush=True)
         return
     busy_us, end = 0.0, float("-inf")
@@ -284,11 +299,251 @@ def profile_benzene(Q, system, cfg) -> None:
         row[0] += e.time_range.elapsed_us()
         row[1] += 1
     summed_us = sum(us for us, _ in by_name.values())
-    print(f"profile benzene: wall {wall:.4f} s (total_s {out.timings['total_s']:.4f}), "
-          f"{len(events)} device events summing to {summed_us / 1e6:.4f} s, busy (their union) "
-          f"{busy_us / 1e6:.4f} s, busy share {busy_us / 1e6 / wall:.4f}", flush=True)
+    total = f" (total_s {out.timings['total_s']:.4f})" if hasattr(out, "timings") else ""
+    print(f"profile {label}: wall {wall:.4f} s{total}, {len(events)} device events summing to "
+          f"{summed_us / 1e6:.4f} s, busy (their union) {busy_us / 1e6:.4f} s, busy share "
+          f"{busy_us / 1e6 / wall:.4f}", flush=True)
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"profile benzene: {us / 1e3:10.3f} ms {count:6d}x {name[:90]}", flush=True)
+        print(f"profile {label}: {us / 1e3:10.3f} ms {count:6d}x {name[:90]}", flush=True)
+
+
+def launches_of(kernels: dict) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def reset(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def drive(kernels: dict, label: str, fn, used: tuple, budget=None):
+    """Run ``fn()`` once with every launch count set to 0 just before and
+    read just after, the peak device memory reset before; fail if a kernel
+    in ``used`` was not launched. ``budget`` sets the pair builder's byte
+    budget for the run. Returns (output, launches, peak bytes, wall s)."""
+    from qchem_rs_tpu_torch.ops.fock_pair import BUDGET_ENV
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    old = os.environ.get(BUDGET_ENV)
+    if budget is not None:
+        os.environ[BUDGET_ENV] = str(budget)
+    reset(kernels)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if budget is not None:
+            os.environ.pop(BUDGET_ENV)
+            if old is not None:
+                os.environ[BUDGET_ENV] = old
+    launches = launches_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    timings = ", ".join(f"{k} {v:.4f}" for k, v in out.timings.items())
+    print(f"{label}: E {out.total_energy():.10f}, {out.iterations} iterations, converged "
+          f"{out.converged}, wall {wall:.4f} s; timings: {timings}; peak device memory "
+          f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    if not out.converged:
+        fail(f"{label} did not converge")
+    missing = [name for name in used if launches[name] == 0]
+    if missing:
+        fail(f"{label} bypassed {missing}: {launches}")
+    return out, launches, peak, wall
+
+
+def naphthalene_rhf(Q, kernels: dict, paths: dict):
+    """RHF on naphthalene/cc-pVDZ through every Fock mode (SAD guess) and
+    the pair mode from the Hückel guess; returns the system and the SAD
+    pair run's output."""
+    from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
+
+    basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "cc-pVDZ.json"))
+    system = Q.MolecularSystem.load(os.path.join(ROOT, "data", "mol", "naphthalene.json"), basis)
+    M, nao = TiledEriEngine(system, 1e-12, device="cuda").layout.M, system.n_basis()
+    both = ("eri_tile", "fock_matvec")
+    runs = {}
+    for label, mode, guess, budget, used in (
+        ("incore sad", "incore", "sad", None, both),
+        ("pair sad", "pair", "sad", None, both),
+        ("pair lean sad", "pair", "sad", 0, both),
+        ("direct sad", "direct", "sad", None, ("eri_tile",)),
+        ("pair huckel", "pair", "huckel", None, both),
+    ):
+        cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=150, fock_mode=mode,
+                                  initial_guess=guess)
+        out, launches, peak, wall = drive(
+            kernels, f"naphthalene/cc-pVDZ {label}",
+            lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"), used, budget)
+        runs[label] = out
+        paths[f"rhf naphthalene {label}"] = dict(launches, iterations=out.iterations,
+                                                 peak_bytes=peak, total_s=out.timings["total_s"])
+        dE = out.total_energy() - NAPHTHALENE_E
+        print(f"naphthalene/cc-pVDZ {label}: dE {dE:.2e} from the anchor", flush=True)
+        if abs(dE) > 1e-6:
+            fail(f"naphthalene/cc-pVDZ {label} lies {dE:.2e} Eh from its anchor")
+    v2_bytes, pair_bytes = 8.0 * M * M, 8.0 * (M * M + nao * nao * M)
+    print(f"naphthalene/cc-pVDZ: M {M}, nao {nao}; V2 {v2_bytes / 1e9:.3f} GB, V2f + W "
+          f"{pair_bytes / 1e9:.3f} GB", flush=True)
+    if paths["rhf naphthalene direct sad"]["peak_bytes"] >= v2_bytes:
+        fail("the direct mode's peak reaches the size of V2")
+    if paths["rhf naphthalene pair lean sad"]["peak_bytes"] >= pair_bytes:
+        fail("the lean pair run holds as much as V2f and W")
+    sad = [o.total_energy() for label, o in runs.items() if label.endswith("sad")]
+    print(f"naphthalene/cc-pVDZ SAD modes: spread {max(sad) - min(sad):.2e} Eh; pair iterations "
+          f"SAD {runs['pair sad'].iterations}, Hückel {runs['pair huckel'].iterations}", flush=True)
+    if max(sad) - min(sad) > 1e-7:
+        fail("naphthalene/cc-pVDZ SAD runs disagree by more than 1e-7 Eh")
+    return system, runs["pair sad"]
+
+
+def pair_kernel_numbers(system, density, fock_matvec) -> dict:
+    """Kernel 2 on the mirrored V2f of naphthalene against its twin, its
+    bound and torch.mv, and W @ dK against its bound, at the converged
+    density's vectors."""
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
+
+    builder = PairSpaceFockBuilder(system, 1e-12, device="cuda", lean=False)
+    V2f, W = builder.prepare()
+    dJ, dK = builder.density_vectors(torch.tensor(density, device="cuda"))
+    m = V2f.shape[0]
+    out, ref = fock_matvec.matvec(V2f, dJ), fock_matvec.matvec_plain(V2f, dJ)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref)
+    if not rel <= KERNEL2_RTOL:
+        fail(f"kernel 2 disagrees with its twin on V2f at m={m}: {rel:.3e}")
+    ms, plain_ms, mv_ms, w_ms = [], [], [], []
+    for _ in range(2):
+        mv_ms.append(cuda_ms(lambda: torch.mv(V2f, dJ), 20))
+        ms.append(cuda_ms(lambda: fock_matvec.matvec(V2f, dJ), 20))
+        plain_ms.append(cuda_ms(lambda: fock_matvec.matvec_plain(V2f, dJ), 20))
+        w_ms.append(cuda_ms(lambda: torch.mv(W, dK), 20))
+    nb = -(-m // fock_matvec.BLOCK)
+    nbytes = 8.0 * (nb * (nb + 1) // 2 * fock_matvec.BLOCK**2 + 2 * m)
+    w_bytes = 8.0 * (W.numel() + W.shape[0] + W.shape[1])
+    res = {"m": m, "max_abs_err": err, "rel_err": rel, "ms": float(np.mean(ms)),
+           "plain_ms": float(np.mean(plain_ms)), "library_ms": float(np.mean(mv_ms)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "w_ms": float(np.mean(w_ms)),
+           "w_bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"kernel2 on naphthalene V2f m={m}: {res['ms']:.4f} ms (runs {ms}), twin "
+          f"{res['plain_ms']:.4f} ms, torch.mv {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB block upper triangle); max rel err "
+          f"{rel:.3e}", flush=True)
+    print(f"W @ dK on naphthalene ({W.shape[0]} x {W.shape[1]}): {res['w_ms']:.4f} ms (runs "
+          f"{w_ms}), bound {res['w_bound_ms']:.4f} ms ({w_bytes / 1e9:.3f} GB)", flush=True)
+    return res
+
+
+def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> dict:
+    """Per direct pass on naphthalene: kernel 1 against its twin on the
+    first twin-sized batch of every class pair, its launches counted, and
+    the times of kernel 1, of kernel 1 with the ket contraction and of the
+    whole J/K pass (the digestion is the difference) against kernel 1's
+    bound."""
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    builder = StreamingFockBuilder(system, 1e-12, device="cuda")
+    eng = builder.engine
+    worst, seen = 0.0, set()
+    for i1, i2, ti, tj in eng.batches(twin=True):
+        if (i1, i2) in seen:
+            continue
+        seen.add((i1, i2))
+        out = eng.bra_batch(i1, i2, ti, tj)
+        ref = eng.bra_batch(i1, i2, ti, tj, fn=eri_kernel.bra_tiles_plain)
+        err, rel = rel_err(out, ref)
+        if not rel <= KERNEL1_RTOL:
+            fail(f"kernel 1 disagrees with its twin on naphthalene class pair {i1},{i2}: {rel:.3e}")
+        worst = max(worst, err)
+    D = torch.tensor(density, device="cuda")[None]
+
+    def kernel1():
+        for k in range(len(builder.batches)):
+            builder.bra_values(k)
+
+    def values():
+        for k in range(len(builder.batches)):
+            builder.tile_values(k)
+
+    before = eri_kernel.KERNEL.launches
+    builder.jk_stack_cart(D)
+    torch.cuda.synchronize()
+    per_pass = eri_kernel.KERNEL.launches - before
+    if per_pass != len(builder.batches):
+        fail(f"a direct pass launched kernel 1 {per_pass} times, not {len(builder.batches)}")
+    k1, kv, full = [], [], []
+    for _ in range(2):
+        k1.append(cuda_ms(kernel1, 2))
+        kv.append(cuda_ms(values, 2))
+        full.append(cuda_ms(lambda: builder.jk_stack_cart(D), 2))
+    nbytes, flops = eng.bra_kernel_work()
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
+    res = {"launches_per_pass": per_pass, "max_abs_err": worst, "kernel1_ms": float(np.mean(k1)),
+           "ket_ms": float(np.mean(kv) - np.mean(k1)), "digest_ms": float(np.mean(full) - np.mean(kv)),
+           "pass_ms": float(np.mean(full)), "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    print(f"direct pass on naphthalene: {per_pass} kernel-1 launches; kernel 1 "
+          f"{res['kernel1_ms']:.3f} ms (runs {k1}), ket contraction {res['ket_ms']:.3f} ms, "
+          f"digestion {res['digest_ms']:.3f} ms, whole pass {res['pass_ms']:.3f} ms (runs {full}); "
+          f"kernel 1 must move {nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do "
+          f"{flops / 1e9:.2f} GFLOP ({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}; kernel 1 vs twin max abs err {worst:.3e} over {len(seen)} class "
+          f"pairs", flush=True)
+    if profile:
+        device_profile("naphthalene direct pass", lambda: builder.jk_stack_cart(D))
+        batch_sweep(system, D, eng)
+    return res
+
+
+def batch_sweep(system, D, engine) -> None:
+    """One direct pass at three kernel-1 batch sizes (the engine's
+    BATCH_BYTES is the largest): time and peak device memory."""
+    from qchem_rs_tpu_torch.ops import eri_tiled
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    default = eri_tiled.BATCH_BYTES
+    try:
+        for shift in (27, 28, 29):
+            eri_tiled.BATCH_BYTES = 1 << shift
+            builder = StreamingFockBuilder(system, 1e-12, device="cuda", engine=engine)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs = [cuda_ms(lambda: builder.jk_stack_cart(D), 2) for _ in range(2)]
+            print(f"direct pass with 2^{shift}-byte batches ({len(builder.batches)} launches): "
+                  f"{np.mean(runs):.3f} ms (runs {runs}), peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    finally:
+        eri_tiled.BATCH_BYTES = default
+
+
+def uhf_6_31g(Q, kernels: dict, paths: dict) -> None:
+    """UHF at BASELINE config 3: OH doublet and O2 triplet in 6-31G
+    through the three Fock modes at diag_rms 1e-10."""
+    basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "6-31G.json"))
+    for mol, mult in (("hydroxyl", 2), ("oxygen", 3)):
+        system = Q.MolecularSystem.load(os.path.join(ROOT, "data", "mol", f"{mol}.json"), basis)
+        energies = []
+        for mode in ("incore", "pair", "direct"):
+            cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=mult,
+                                      fock_mode=mode)
+            used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
+            out, launches, peak, _ = drive(
+                kernels, f"UHF {mol}/6-31G multiplicity {mult} {mode}",
+                lambda: Q.unrestricted_hartree_fock(system, cfg, device="cuda"), used)
+            paths[f"uhf {mol} {mode}"] = dict(launches, iterations=out.iterations,
+                                              peak_bytes=peak, total_s=out.timings["total_s"])
+            energies.append(out.total_energy())
+        if mol == "hydroxyl":
+            dE = max(abs(e - OH_E) for e in energies)
+            print(f"UHF OH/6-31G: largest |dE| {dE:.2e} from the CPU fixed point", flush=True)
+            if dE > 1e-8:
+                fail(f"UHF OH/6-31G lies {dE:.2e} Eh from its fixed point")
+        else:
+            spread = max(energies) - min(energies)
+            print(f"UHF O2/6-31G triplet: spread {spread:.2e} Eh over the modes", flush=True)
+            if spread > 1e-8 or not all(-149.8 < e < -149.3 for e in energies):
+                fail(f"UHF O2/6-31G triplet energies {energies} disagree or leave (-149.8, -149.3)")
 
 
 def main(argv: list[str]) -> int:
@@ -365,7 +620,17 @@ def main(argv: list[str]) -> int:
     k1 = time_kernel1(engine, eri_kernel)
     time_engine_setup(system)
     if "--profile" in argv:
-        profile_benzene(Q, system, cfg)
+        device_profile("benzene", lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"))
+
+    # 6. the scale path: naphthalene/cc-pVDZ through every Fock mode, the
+    # kernels on its new paths, and UHF at BASELINE config 3
+    named = {"eri_tile": eri_kernel.KERNEL, "fock_matvec": fock_matvec.KERNEL}
+    paths = {"rhf benzene incore huckel": dict(launches)}
+    naph, pair_run = naphthalene_rhf(Q, named, paths)
+    pair_kernel_numbers(naph, pair_run.density, fock_matvec)
+    direct_pass_numbers(naph, pair_run.density, eri_kernel, profile="--profile" in argv)
+    uhf_6_31g(Q, named, paths)
+    print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "eri_tile", "route": "cuda", "source": "qchem_rs_tpu_torch/csrc/eri_tile.cu",

@@ -2,16 +2,20 @@
 PyTorch, with its TPU kernels rewritten as hand-written CUDA kernels for
 NVIDIA Hopper (``csrc/``).
 
-This slice covers the in-core RHF path: basis and molecule loading, one-
-electron integrals, the Schwarz-screened pair-space ERI build (kernel 1,
-``ops/eri_kernel.py``), the RHF operator, and the SCF loop whose per-pass
-Fock matvec is kernel 2 (``ops/fock_matvec.py``). Everything is float64.
+The port covers RHF and UHF: basis and molecule loading, one-electron
+integrals, the Schwarz-screened pair-space ERI build (kernel 1,
+``ops/eri_kernel.py``), three Fock modes (the in-core operator, whose
+per-pass matvec is kernel 2 (``ops/fock_matvec.py``); the pair-space
+matrices of ``ops/fock_pair.py``, whose Coulomb product is kernel 2; the
+integral-direct ``ops/fock_stream.py``, which runs kernel 1 at every
+pass), and the Hückel or SAD guess. Everything is float64.
 Every entry point takes an explicit ``device``; CPU tensors run each
 kernel's plain PyTorch twin. The package never imports JAX.
 """
 
 from qchem_rs_tpu_torch.config import HartreeFockConfig
 from qchem_rs_tpu_torch.models.rhf import RestrictedHartreeFockOutput, restricted_hartree_fock
+from qchem_rs_tpu_torch.models.uhf import UnrestrictedHartreeFockOutput, unrestricted_hartree_fock
 from qchem_rs_tpu_torch.utils.basis import BasisSet
 from qchem_rs_tpu_torch.utils.system import Atom, MolecularSystem
 
@@ -21,5 +25,7 @@ __all__ = [
     "HartreeFockConfig",
     "MolecularSystem",
     "RestrictedHartreeFockOutput",
+    "UnrestrictedHartreeFockOutput",
     "restricted_hartree_fock",
+    "unrestricted_hartree_fock",
 ]

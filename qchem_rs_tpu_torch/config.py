@@ -3,9 +3,10 @@
 Mirrors the reference's ``HartreeFockConfig { max_iterations, epsilon }``
 (qchem-rs core/src/hf/mod.rs:9-15) and extends it with the knobs the
 reference hard-codes: DIIS window (rhf.rs:65), density mixing (rhf.rs:80-82),
-convergence metric (rhf.rs:87-88), charge / spin multiplicity and the
-screening threshold. The port honours the subset its in-core RHF path runs
-(``models/rhf.py`` rejects the rest with NotImplementedError).
+convergence metric (rhf.rs:87-88), charge / spin multiplicity, the
+screening threshold, the Fock mode and the initial guess. The port honours
+all of them but level shifting and external fields, which
+``models/rhf.py`` and ``models/uhf.py`` reject with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,13 +41,15 @@ class HartreeFockConfig:
     spin_multiplicity: int = 0
     #: Schwarz screening threshold for pair tiles (0 disables).
     screening_threshold: float = 1e-12
-    #: "incore" materializes the RHF operator once; "pair" and "direct" are
-    #: not ported yet.
+    #: "incore" materializes the RHF operator (the ERI tensor for UHF) once;
+    #: "pair" keeps only the pair-space matrices V2f and W (J and K are
+    #: matvecs); "direct" recomputes the screened integrals at every pass
+    #: and stores nothing of size M^2.
     fock_mode: str = "incore"
     #: per-iteration SCF logging
     verbose: bool = False
-    #: initial density guess: "huckel" (rhf.rs:133-150); "sad" is not ported
-    #: yet.
+    #: initial density guess: "huckel" (rhf.rs:133-150) or "sad", the
+    #: superposition of atomic densities (``models/sad.py``).
     initial_guess: str = "huckel"
     #: level shift sigma (Hartree) added to the virtual-virtual block of the
     #: orthogonal-basis Fock matrix; 0 disables. Not ported yet.

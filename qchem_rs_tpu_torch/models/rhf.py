@@ -1,15 +1,25 @@
-"""Restricted Hartree-Fock, in-core, as a plain loop on tensors (port of the
-in-core branch of ``qchem_rs_tpu/models/rhf.py::restricted_hartree_fock``
-and of ``_rhf_scf``).
+"""Restricted Hartree-Fock as a host loop on tensors (port of
+``qchem_rs_tpu/models/rhf.py::restricted_hartree_fock``, its in-core
+``_rhf_scf``, pair-space ``_rhf_scf_direct`` and streaming
+``_rhf_scf_hostloop``).
 
 Algorithmic parity with the reference (qchem-rs core/src/hf/rhf.rs:32-181):
 nuclear repulsion (rhf.rs:110-122), H = T + V (rhf.rs:48), Löwdin X
-(rhf.rs:124-131), Hückel guess (rhf.rs:133-150), the operator
-(ij|kl) - 1/2 (ik|jl) (rhf.rs:58-62) held as one (n^2, n^2) matrix so each
-pass's G is one matvec (kernel 2, ``ops/fock_matvec.py``), DIIS(4,6)
-(rhf.rs:65), the FDS-SDF error (rhf.rs:71), E = 1/2 Tr[D(2H + G)] with the
-*updated* density but the *pre-update* G (rhf.rs:84-85), max_iterations+1
-passes (rhf.rs:66) and the 0-based reported iteration.
+(rhf.rs:124-131), Hückel guess (rhf.rs:133-150), DIIS(4,6) (rhf.rs:65), the
+FDS-SDF error (rhf.rs:71), E = 1/2 Tr[D(2H + G)] with the *updated*
+density but the *pre-update* G (rhf.rs:84-85), max_iterations+1 passes
+(rhf.rs:66) and the 0-based reported iteration.
+
+The three Fock modes share one loop and differ in G:
+
+- "incore": the operator (ij|kl) - 1/2 (ik|jl) (rhf.rs:58-62) held as one
+  (n^2, n^2) matrix, so G is one matvec (kernel 2, ``ops/fock_matvec.py``);
+- "pair": G = J - 1/2 K from the pair-space matrices (``ops/fock_pair.py``);
+- "direct": G = J - 1/2 K recomputed from the integrals at every pass
+  (``ops/fock_stream.py``).
+
+``initial_guess="sad"`` or a ``density_guess`` start the loop from another
+density than Hückel's.
 """
 
 from __future__ import annotations
@@ -27,7 +37,13 @@ from qchem_rs_tpu_torch.models import scf
 from qchem_rs_tpu_torch.models.diis import Diis
 from qchem_rs_tpu_torch.ops import fock_matvec, one_electron
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
+from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
+from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+from qchem_rs_tpu_torch.utils import interop
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
+
+#: the Fock modes of ``HartreeFockConfig.fock_mode``
+FOCK_MODES = ("incore", "pair", "direct")
 
 
 @dataclasses.dataclass
@@ -64,19 +80,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, terms: torch.Tensor) -> _ScfResult:
-    """The SCF fixed-point iteration from the Hückel guess."""
+def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, g_fn, D0=None) -> _ScfResult:
+    """The SCF fixed-point iteration from ``D0`` (Hückel's guess when
+    None), with G = ``g_fn(D)``."""
     n = H.shape[0]
     diis_min, diis_max = config.diis_window(4, 6)
     diis = Diis(diis_max, diis_min, n, H.device)
     metric = config.convergence_metric
-    D = scf.huckel_guess(H, S, X, nocc, scale=2.0)
+    D = scf.huckel_guess(H, S, X, nocc, scale=2.0) if D0 is None else D0
     energy, rms, converged, passes = 0.0, math.inf, False, 0
     w = torch.zeros(n, dtype=H.dtype, device=H.device)
     C = torch.zeros((n, n), dtype=H.dtype, device=H.device)
     # reference loops 0..=max_iterations (rhf.rs:66): max_iterations+1 passes
     while not converged and passes <= config.max_iterations:
-        G = fock_matvec.matvec(terms, D.reshape(-1)).reshape(n, n)  # rhf.rs:152-167
+        G = g_fn(D)  # rhf.rs:152-167
         F = H + G
         err = F @ D @ S - S @ D @ F  # rhf.rs:71
         F = diis.apply(err, F)
@@ -97,56 +114,103 @@ def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, terms: torch.Tensor)
     return _ScfResult(passes, D, energy, converged, w, C)
 
 
-def restricted_hartree_fock(
-    system: MolecularSystem,
-    config: Optional[HartreeFockConfig] = None,
-    *,
-    device="cuda",
-) -> RestrictedHartreeFockOutput:
-    """Run in-core RHF on ``device`` (reference entry point rhf.rs:32-35).
-
-    The default is the card: on a CUDA device the ERI tiles go through
-    kernel 1 and every SCF pass's matvec through kernel 2. A run on the CPU
-    (both kernels' plain twins) must ask for it with ``device="cpu"``;
-    asking for CUDA where it is not available raises, with no fallback.
-    """
-    config = config or HartreeFockConfig()
-    if config.fock_mode != "incore":
-        raise NotImplementedError(f"fock_mode={config.fock_mode!r} is not ported; use 'incore'")
-    if config.initial_guess != "huckel":
+def _check_config(config: HartreeFockConfig) -> None:
+    """Raise for what the port does not run."""
+    if config.fock_mode not in FOCK_MODES:
+        raise NotImplementedError(f"fock_mode={config.fock_mode!r} is not one of {FOCK_MODES}")
+    if config.initial_guess not in ("huckel", "sad"):
         raise NotImplementedError(f"initial_guess={config.initial_guess!r} is not ported")
     if any(config.electric_field):
         raise NotImplementedError("external electric fields are not ported")
     if config.level_shift != 0.0:
         raise NotImplementedError("level shifting is not ported")
-    n_electrons = system.n_electrons(config.charge)
-    if config.spin_multiplicity not in (0, 1):
-        raise ValueError("RHF requires a closed shell (spin multiplicity 1)")
-    if n_electrons % 2 != 0 and config.spin_multiplicity == 1:
-        raise ValueError(f"RHF needs an even electron count, got {n_electrons}")
-    nocc = n_electrons // 2
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when it names CUDA and CUDA is
+    not available (no fallback to the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU"
         )
+    return device
 
-    timings: dict = {}
-    t0 = time.perf_counter()
-    engine = TiledEriEngine(system, config.screening_threshold, device=device)
-    t1 = time.perf_counter()
+
+def core_hamiltonian(system: MolecularSystem, device):
+    """(S, H, X): overlap, core Hamiltonian T + V and Löwdin X."""
     S = one_electron.overlap(system, device)
     H = one_electron.kinetic(system, device) + one_electron.nuclear(system, device)
-    X = scf.lowdin_x(S)
-    _sync(device)
-    timings["one_electron_s"] = time.perf_counter() - t1
+    return S, H, scf.lowdin_x(S)
+
+
+def restricted_hartree_fock(
+    system: MolecularSystem,
+    config: Optional[HartreeFockConfig] = None,
+    *,
+    density_guess: Optional[np.ndarray] = None,
+    device="cuda",
+) -> RestrictedHartreeFockOutput:
+    """Run RHF on ``device`` (reference entry point rhf.rs:32-35).
+
+    The default is the card: on a CUDA device the ERI tiles go through
+    kernel 1, and kernel 2 takes the in-core operator's matvec or the pair
+    mode's Coulomb product. A run on the CPU (both kernels' plain twins)
+    must ask for it with ``device="cpu"``; asking for CUDA where it is not
+    available raises, with no fallback. ``density_guess`` (numpy
+    (nao, nao)) starts the SCF in place of the configured guess.
+    """
+    config = config or HartreeFockConfig()
+    _check_config(config)
+    n_electrons = system.n_electrons(config.charge)
+    if config.spin_multiplicity not in (0, 1):
+        raise ValueError("RHF requires a closed shell (spin multiplicity 1)")
+    if n_electrons % 2 != 0 and config.spin_multiplicity == 1:
+        raise ValueError(f"RHF needs an even electron count, got {n_electrons}")
+    nocc = n_electrons // 2
+    device = check_device(device)
+    n = system.n_basis()
+
+    timings: dict = {}
+    if density_guess is None and config.initial_guess == "sad":
+        from qchem_rs_tpu_torch.models.sad import sad_guess
+
+        t_g = time.perf_counter()
+        density_guess = sad_guess(system, charge=config.charge)
+        timings["guess_s"] = time.perf_counter() - t_g
+    D0 = None if density_guess is None else interop.density_guess(density_guess, n, 1, device)
+    t0 = time.perf_counter()
+    thr = config.screening_threshold
+    if config.fock_mode == "incore":
+        engine = TiledEriEngine(system, thr, device=device)
+        t1 = time.perf_counter()
+        S, H, X = core_hamiltonian(system, device)
+        _sync(device)
+        timings["one_electron_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        terms = engine.finish_terms(engine.build())
+        _sync(device)
+        timings["eri_s"] = time.perf_counter() - t1
+
+        def g_fn(D):
+            return fock_matvec.matvec(terms, D.reshape(-1)).reshape(n, n)
+    else:
+        S, H, X = core_hamiltonian(system, device)
+        if config.fock_mode == "pair":
+            builder = PairSpaceFockBuilder(system, thr, device=device)
+            t1 = time.perf_counter()
+            builder.prepare()
+            _sync(device)
+            timings["eri_s"] = time.perf_counter() - t1
+        else:
+            builder = StreamingFockBuilder(system, thr, device=device)
+
+        def g_fn(D):
+            J, K = builder.jk(D)
+            return J - 0.5 * K
     t1 = time.perf_counter()
-    terms = engine.finish_terms(engine.build())
-    _sync(device)
-    timings["eri_s"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    st = _rhf_scf(H, X, S, nocc, config, terms)
+    st = _rhf_scf(H, X, S, nocc, config, g_fn, D0)
     _sync(device)
     timings["scf_s"] = time.perf_counter() - t1
     timings["total_s"] = time.perf_counter() - t0

@@ -8,6 +8,8 @@ Reference algorithms mirrored (qchem-rs core/src/hf/rhf.rs):
 - density update D_ij = occ_scale * sum_k^occ C_ik C_jk: rhf.rs:169-181
 - diagonal-only density RMS convergence metric: rhf.rs:87-88 (quirk kept as
   the default; full-matrix RMS available via config)
+- UHF electron counts, with the reference's n/2-n/2 split at spin
+  multiplicity 0 (uhf.rs:43-45)
 """
 
 from __future__ import annotations
@@ -57,6 +59,21 @@ def density_rms(d_change: torch.Tensor, metric: str) -> torch.Tensor:
     if metric == "full_rms":
         return torch.sqrt(torch.sum(d_change**2) / (n * n))
     raise ValueError(f"unknown convergence metric {metric!r}")
+
+
+def electron_counts(n_electrons: int, spin_multiplicity: int) -> tuple[int, int]:
+    """(n_alpha, n_beta) for a spin multiplicity 2S+1. Multiplicity 0 is
+    the reference's mode, n_alpha = n_beta = n_electrons // 2 (uhf.rs:43-45,
+    which drops an electron of an odd count)."""
+    if spin_multiplicity == 0:
+        return n_electrons // 2, n_electrons // 2
+    n_unpaired = spin_multiplicity - 1
+    if (n_electrons - n_unpaired) % 2 != 0 or n_unpaired > n_electrons:
+        raise ValueError(
+            f"spin multiplicity {spin_multiplicity} inconsistent with {n_electrons} electrons"
+        )
+    n_beta = (n_electrons - n_unpaired) // 2
+    return n_beta + n_unpaired, n_beta
 
 
 def composite_guard(metric: str) -> float:

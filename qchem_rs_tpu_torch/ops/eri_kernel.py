@@ -150,13 +150,15 @@ def _tile_index(t: np.ndarray, T: int, device) -> torch.Tensor:
     return torch.as_tensor(t[:, None] + np.arange(T)[None, :], dtype=torch.long, device=device)
 
 
-def bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None):
+def bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
+                    offsets=None):
     """The twin, the bra half of the JAX package's ``_tile_vals`` with a
     tile batch axis: R tables by the vectorized recursion, the fused R2m
     gather of ``_r2m_plan`` and one einsum for the bra contraction. Same
     arguments and result as ``bra_tiles``: with ``ket`` counts, entries of
     ket primitive pairs past a pair's count are 0.0 (``bra`` counts change
-    nothing here, since the bra sum over zero-E primitive pairs is exact)."""
+    nothing here, since the bra sum over zero-E primitive pairs is exact;
+    nor do ``offsets``, which repeat ti and tj)."""
     dev = E1.device
     nt = len(ti)
     N1, a, A, S1 = E1.shape
@@ -223,7 +225,8 @@ def _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket) -> None:
                 raise ValueError(f"primitive counts must be int32 on {dev}")
 
 
-def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None) -> torch.Tensor:
+def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
+              offsets=None) -> torch.Tensor:
     """Bra-contracted ERI tiles, (ntiles, A, c*S2, T1, T2) float64.
 
     E1 (N1, a, A, S1), p1 (N1, a), P1 (N1, a, 3) hold the whole bra class and
@@ -231,8 +234,11 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None) ->
     package's ``_tile_vals``; ``ti``/``tj`` are host integer arrays of tile
     offsets. ``bra``/``ket`` are the classes' ``PrimCounts`` (both or
     neither; without them every primitive pair counts as real, and the
-    kernel gets ``all_prims`` counts). CPU tensors take the twin; CUDA
-    tensors launch the kernel.
+    kernel gets ``all_prims`` counts). ``offsets`` may hold ti and tj
+    already on the device as int32 tensors, for a caller that launches the
+    same tiles again and again: a copy from host memory makes the host wait
+    for the device. CPU tensors take the twin; CUDA tensors launch the
+    kernel.
     """
     _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     dev = E1.device
@@ -252,8 +258,12 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None) ->
     out = torch.empty((nt, A, c * S2, T1, T2), dtype=torch.float64, device=dev)
     if nt == 0:
         return out
-    ti_d = torch.as_tensor(np.asarray(ti, dtype=np.int32), device=dev)
-    tj_d = torch.as_tensor(np.asarray(tj, dtype=np.int32), device=dev)
+    if offsets is None:
+        offsets = (torch.as_tensor(np.asarray(ti, dtype=np.int32), device=dev),
+                   torch.as_tensor(np.asarray(tj, dtype=np.int32), device=dev))
+    ti_d, tj_d = offsets
+    if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
+        raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
     if ket is None:
         bra, ket = all_prims(N1, a, T1, dev), all_prims(p2.shape[0], c, T2, dev)
     with torch.cuda.device(dev):

@@ -171,15 +171,17 @@ def _tile_flops(m1: _ClassMeta, m2: _ClassMeta, T1: int, T2: int) -> float:
     return float(T1 * T2) * (elem + boys_f + base + rrec + r2m + dots)
 
 
-def ket_contract(bra: torch.Tensor, E2: torch.Tensor, tj: np.ndarray, T2: int) -> torch.Tensor:
+def ket_contract(bra: torch.Tensor, E2: torch.Tensor, tj, T2: int) -> torch.Tensor:
     """Ket Hermite->Cartesian contraction of bra-contracted tiles.
 
     bra (nt, A, c*S2, T1, T2) from ``bra_tiles``; E2 (N2, c, C, S2) the ket
-    class. Returns the (nt, T1*A, T2*C) V2 blocks, rows (t1, alpha) and
+    class; tj the ket tile offsets, on the host or as a tensor on bra's
+    device. Returns the (nt, T1*A, T2*C) V2 blocks, rows (t1, alpha) and
     columns (t2, gamma)."""
     nt, A, cS2, T1, _ = bra.shape
     C = E2.shape[2]
-    i2 = torch.as_tensor(tj[:, None] + np.arange(T2)[None, :], dtype=torch.long, device=bra.device)
+    tj = torch.as_tensor(tj, dtype=torch.long, device=bra.device)
+    i2 = tj[:, None] + torch.arange(T2, device=bra.device)
     E2t = E2[i2].permute(0, 1, 2, 4, 3).reshape(nt * T2, cS2, C)  # (nt*T2, (c,s2), C)
     x = bra.permute(0, 4, 3, 1, 2).reshape(nt * T2, T1 * A, cS2)  # (nt*T2, (t1,alpha), (c,s2))
     out = torch.bmm(x, E2t).reshape(nt, T2, T1 * A, C)
@@ -220,6 +222,7 @@ class TiledEriEngine:
         eng = TiledEriEngine(system, 1e-12, device=device)
         V2 = eng.build()                 # upper class blocks valid
         terms = eng.finish_terms(V2)     # (n^2, n^2); V2 is mirrored in place
+        e4 = eng.finish_eri(eng.build()) # (n, n, n, n) chemists' tensor
     """
 
     def __init__(self, system: MolecularSystem, screening_threshold: float = 0.0, *, device):
@@ -276,13 +279,14 @@ class TiledEriEngine:
             for s in range(0, len(ti), step):
                 yield i1, i2, ti[s : s + step], tj[s : s + step]
 
-    def bra_batch(self, i1, i2, ti, tj, fn=bra_tiles) -> torch.Tensor:
-        """Kernel 1 (or ``fn``) on one batch of tiles of class pair (i1, i2)."""
+    def bra_batch(self, i1, i2, ti, tj, fn=bra_tiles, offsets=None) -> torch.Tensor:
+        """Kernel 1 (or ``fn``) on one batch of tiles of class pair (i1, i2);
+        ``offsets`` as ``bra_tiles`` takes them."""
         m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
         E1, p1, P1 = self._padded[i1]
         _, p2, P2 = self._padded[i2]
         return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile,
-                  self._counts[i1], self._counts[i2])
+                  self._counts[i1], self._counts[i2], offsets)
 
     def build(self) -> torch.Tensor:
         """All screened tiles of all class pairs into V2 (upper class
@@ -327,6 +331,21 @@ class TiledEriEngine:
             cols = n[i2][tj[:, None] + np.arange(m2.tile)].sum(axis=1)
             flops += float((rows * cols).sum()) * _quartet_flops(Lb + Lk, nhermite(Lb), S2, m1.A)
         return nbytes, flops
+
+    def finish_eri(self, V2: torch.Tensor) -> torch.Tensor:
+        """(n, n, n, n) chemists' tensor (ij|kl) (port of the Cartesian
+        ``finish_eri``, ``qchem_rs_tpu/ops/eri_tiled.py:1043`` and
+        ``:1089``): the row gathers of ``finish_terms`` without the
+        exchange term, one AO row i at a time. Mirrors V2 in place; peak
+        memory is V2 plus the output."""
+        n = self.nao
+        V2f = mirror_inplace(V2)
+        pmap = torch.as_tensor(self.layout.pmap, device=V2.device)
+        pmap2 = pmap.reshape(n, n)
+        e4 = torch.empty((n * n, n * n), dtype=V2.dtype, device=V2.device)
+        for i in range(n):
+            e4[i * n : (i + 1) * n] = V2f[pmap2[i]][:, pmap]
+        return e4.reshape(n, n, n, n)
 
     def finish_terms(self, V2: torch.Tensor) -> torch.Tensor:
         """(n^2, n^2) operator terms[ij, kl] = (ij|kl) - 1/2 (ik|jl)

@@ -1,0 +1,164 @@
+"""Streaming integral-direct Fock build (port of
+``qchem_rs_tpu/ops/fock_stream.py::StreamingFockBuilder``).
+
+Nothing of size M^2 is stored: every J/K call runs kernel 1 over all
+screened tiles of the pair-space ERI matrix again (the engine's own task
+lists and batches), contracts the ket side (``ket_contract``) and digests
+each batch of (nt, T1*A, T2*C) tile values into J and K at once, for a
+stack of nd densities (nd = 2 digests both UHF spins against one pass).
+
+Coverage: tasks hold class pairs i1 <= i2 and, within a class, the square
+tiles on and above the diagonal. Every block is digested as itself and as
+its transpose; a diagonal tile (ti == tj) is its own transpose, so it is
+halved first. The total is then the contraction with the whole mirrored
+V2, the pair-space formulas of ``ops/fock_pair.py``.
+
+- J accumulates in pair space, ``Jp[rows] += V dJ[cols]`` and
+  ``Jp[cols] += V^T dJ[rows]``: two batched products and two index adds.
+- K is taken at shell-pair granularity rather than element by element. A
+  tile block viewed as (T1, ncA, ncB, T2, ncC, ncD) holds (ij|kl) for the
+  AOs i, j of its bra pairs and k, l of its ket pairs. With the orientation
+  weights u folded in (0 on padding and redundant rows, 1/2 on i = j), the
+  four orientations
+      K[i, k] += V D[j, l]   K[i, l] += V D[j, k]
+      K[j, k] += V D[i, l]   K[j, l] += V D[i, k]
+  are each one batched contraction of the block with a gathered density
+  block, summed over two component axes before the index add into K: the
+  adds fall by ncB * ncD (resp. ncB * ncC, ...) against one add per tile
+  value. The transpose role of every block is K's transpose (D is
+  symmetric), so K = K1 + K1^T at the end. The JAX package's one-hot
+  products were a way around slow TPU scatters and are not copied.
+
+Left out: the JAX package's ``SEG_UNITS`` segments and sentinel tiles (they
+keep each TPU program under its watchdog), the df/pallas kernel switch and
+the mesh branch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qchem_rs_tpu_torch.ops.angular import ncart
+from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, ket_contract
+from qchem_rs_tpu_torch.ops.fock_pair import pair_weights
+from qchem_rs_tpu_torch.utils.system import MolecularSystem
+
+
+class StreamingFockBuilder:
+    """Integral-direct J/K: recompute the screened tiles at every call and
+    digest them at once.
+
+        builder = StreamingFockBuilder(system, 1e-12, device="cuda")
+        J, K = builder.jk(D)                 # D (nao, nao)
+        Js, Ks = builder.jk_stack_cart(Ds)   # Ds (nd, nao, nao)
+    """
+
+    def __init__(self, system: MolecularSystem, threshold: float = 1e-12, *, device,
+                 engine: TiledEriEngine | None = None):
+        self.system = system
+        dev = torch.device(device)
+        self.nao = nao = system.n_basis_cart()
+        self.engine = eng = engine or TiledEriEngine(system, threshold, device=dev)
+        layout = eng.layout
+        self.M = layout.M
+        i64 = lambda x: torch.as_tensor(x, dtype=torch.long, device=dev)  # noqa: E731
+        # the J ket weight 2 - delta, and the K orientation weight u
+        self._wj, self._uk, self._pidx, _, _ = pair_weights(layout, nao, dev)
+        self._pmap = i64(layout.pmap)
+        # per class: each padded pair's first AO on either side (padding
+        # pairs point at AO 0 and carry weight 0)
+        self._ao = []
+        for g, m in zip(layout.groups, layout.metas):
+            ai = np.zeros(m.npad, dtype=np.int64)
+            aj = np.zeros(m.npad, dtype=np.int64)
+            ai[: g.npairs], aj[: g.npairs] = g.ao_i, g.ao_j
+            self._ao.append((i64(ai), i64(aj)))
+        metas = layout.metas
+        for i1, i2, ti, tj in eng._tasks:
+            if i1 == i2 and (metas[i1].tile != metas[i2].tile or (tj < ti).any()):
+                raise RuntimeError("same-class tiles must be square and on or above the diagonal")
+        #: every kernel-1 call of one pass: (i1, i2, ti, tj), the V2 build's
+        #: batches (the host spends about 2 ms on a batch, so fewer and
+        #: larger batches are faster)
+        self.batches = list(eng.batches())
+        # the tile offsets of each batch on the device, copied once: a copy
+        # from host memory at every pass would make the host wait for the
+        # device three times a batch
+        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        self._offsets = [(i64(ti), i64(tj), (i32(ti), i32(tj))) for _, _, ti, tj in self.batches]
+
+    def bra_values(self, k: int) -> torch.Tensor:
+        """Kernel 1 on batch ``k`` of ``batches``."""
+        i1, i2, ti, tj = self.batches[k]
+        return self.engine.bra_batch(i1, i2, ti, tj, offsets=self._offsets[k][2])
+
+    def tile_values(self, k: int) -> torch.Tensor:
+        """The (nt, T1*A, T2*C) V2 blocks of batch ``k``: kernel 1, then the
+        ket contraction."""
+        i2 = self.batches[k][1]
+        return ket_contract(self.bra_values(k), self.engine._padded[i2][0], self._offsets[k][1],
+                            self.engine.layout.metas[i2].tile)
+
+    def _digest(self, i1, i2, ti_d, tj_d, vals, D, dJ, Jp, K1) -> None:
+        """Add one batch's tile values (halved in place on diagonal tiles
+        and weighted in place) into Jp (M, nd) and K1 (nd, nao, nao)."""
+        metas = self.engine.layout.metas
+        m1, m2 = metas[i1], metas[i2]
+        nt, nr, nc = vals.shape
+        nd, nao = D.shape[0], self.nao
+        dev = vals.device
+        if i1 == i2:
+            vals *= torch.where(ti_d == tj_d, 0.5, 1.0).to(vals.dtype)[:, None, None]
+        rows = m1.row_base + ti_d[:, None] * m1.A + torch.arange(nr, device=dev)  # (nt, nr)
+        cols = m2.row_base + tj_d[:, None] * m2.A + torch.arange(nc, device=dev)
+        # J, both roles
+        Jp.index_add_(0, rows.reshape(-1), torch.bmm(vals, dJ[cols]).reshape(-1, nd))
+        Jp.index_add_(0, cols.reshape(-1), torch.bmm(vals.transpose(1, 2), dJ[rows]).reshape(-1, nd))
+        # K, role 1 at shell-pair granularity
+        vals *= self._uk[rows][:, :, None]
+        vals *= self._uk[cols][:, None, :]
+        ncA, ncB, ncC, ncD = ncart(m1.la), ncart(m1.lb), ncart(m2.la), ncart(m2.lb)
+        T1, T2 = m1.tile, m2.tile
+        V = vals.view(nt, T1, ncA, ncB, T2, ncC, ncD)
+        ai, aj = self._ao[i1]
+        ak, al = self._ao[i2]
+        p1 = ti_d[:, None] + torch.arange(T1, device=dev)  # (nt, T1) bra pairs
+        p2 = tj_d[:, None] + torch.arange(T2, device=dev)
+        I = ai[p1][:, :, None] + torch.arange(ncA, device=dev)  # (nt, T1, ncA)
+        J = aj[p1][:, :, None] + torch.arange(ncB, device=dev)
+        Kk = ak[p2][:, :, None] + torch.arange(ncC, device=dev)  # (nt, T2, ncC)
+        L = al[p2][:, :, None] + torch.arange(ncD, device=dev)
+        K1f = K1.view(nd, nao * nao)
+
+        def block(X, Y):  # D[s, X[n, x, u], Y[n, y, v]] -> (nd, nt, T1, u, T2, v)
+            return D[:, X[:, :, :, None, None], Y[:, None, None, :, :]]
+
+        def add(out, X, Y):  # K1[s, X[n, x, u], Y[n, y, v]] += out[s, n, x, u, y, v]
+            idx = X[:, :, :, None, None] * nao + Y[:, None, None, :, :]
+            K1f.index_add_(1, idx.reshape(-1), out.reshape(nd, -1))
+
+        add(torch.einsum("nxabycd,snxbyd->snxayc", V, block(J, L)), I, Kk)
+        add(torch.einsum("nxabycd,snxbyc->snxayd", V, block(J, Kk)), I, L)
+        add(torch.einsum("nxabycd,snxayd->snxbyc", V, block(I, L)), J, Kk)
+        add(torch.einsum("nxabycd,snxayc->snxbyd", V, block(I, Kk)), J, L)
+
+    def jk_stack_cart(self, D: torch.Tensor):
+        """J and K stacks (nd, nao, nao) of a stack of symmetric densities
+        (nd, nao, nao): one pass of kernel 1 over every screened tile."""
+        nd, nao = D.shape[0], self.nao
+        dJ = (D.reshape(nd, -1)[:, self._pidx] * self._wj).T.contiguous()  # (M, nd)
+        Jp = torch.zeros((self.M, nd), dtype=D.dtype, device=D.device)
+        K1 = torch.zeros((nd, nao, nao), dtype=D.dtype, device=D.device)
+        for k, ((i1, i2, _, _), (ti_d, tj_d, _)) in enumerate(zip(self.batches, self._offsets)):
+            self._digest(i1, i2, ti_d, tj_d, self.tile_values(k), D, dJ, Jp, K1)
+        J = Jp[self._pmap].T.reshape(nd, nao, nao)
+        return J, K1 + K1.transpose(1, 2)
+
+    def jk_cart(self, D: torch.Tensor):
+        """J and K (nao, nao) of one symmetric density (nao, nao)."""
+        J, K = self.jk_stack_cart(D[None])
+        return J[0], K[0]
+
+    #: the port's AOs are Cartesian, so the working basis is this one
+    jk = jk_cart

@@ -2,10 +2,10 @@
 
 Hartree-Fock has no weights: its state is the basis, the geometry and the
 pair-group tensors (Hermite tables E, exponents p, centres P, Schwarz
-bounds and sort orders). These functions take plain numpy arrays — as the
-JAX package's objects hand them out through ``np.asarray`` — and build the
-port's objects from them, so that both packages can be fed identical
-inputs. Nothing here imports JAX.
+bounds and sort orders), and an SCF's starting density. These functions
+take plain numpy arrays — as the JAX package's objects hand them out
+through ``np.asarray`` — and build the port's objects from them, so that
+both packages can be fed identical inputs. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -39,3 +39,14 @@ def pair_group_from_numpy(la: int, lb: int, i_shell, j_shell, ao_i, ao_j, E, p, 
         p=to_tensor(p, device), P=to_tensor(P, device), E=to_tensor(E, device),
     )
 
+
+
+def density_guess(D, nao: int, nspin: int, device) -> torch.Tensor:
+    """A starting density from numpy: (nao, nao) for RHF (``nspin`` 1) or
+    the (2, nao, nao) spin stack for UHF (``nspin`` 2), as the JAX package's
+    entry points take it, as a float64 tensor on ``device``."""
+    shape = (nao, nao) if nspin == 1 else (nspin, nao, nao)
+    D = np.asarray(D, dtype=np.float64)
+    if D.shape != shape:
+        raise ValueError(f"density guess has shape {D.shape}, expected {shape}")
+    return to_tensor(D, device)

@@ -115,3 +115,51 @@ def test_rhf_water_ccpvdz_on_card(cuda):
     assert abs(out.total_energy() - -76.02713907) <= 1e-8
     assert eri_kernel.KERNEL.launches > launches[0]
     assert fock_matvec.KERNEL.launches > launches[1]
+
+
+def _water_ccpvdz():
+    return MolecularSystem.load(
+        os.path.join(DATA, "mol", "water.json"),
+        BasisSet.load(os.path.join(DATA, "basis", "cc-pVDZ.json")),
+    )
+
+
+def _density_stack(nd, n, seed):
+    D = np.random.default_rng(seed).standard_normal((nd, n, n))
+    return torch.tensor(D + D.transpose(0, 2, 1))
+
+
+def test_pair_j_through_kernel2_matches_twin(cuda):
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
+
+    system = _water_ccpvdz()
+    D = _density_stack(1, system.n_basis(), 1)[0]
+    builder = PairSpaceFockBuilder(system, 1e-12, device=cuda)
+    V2f, _ = builder.prepare()
+    before = fock_matvec.KERNEL.launches
+    J, K = builder.jk(D.to(cuda))
+    torch.cuda.synchronize()
+    assert fock_matvec.KERNEL.launches == before + 1
+    dJ, _ = builder.density_vectors(D.to(cuda))
+    out, ref = fock_matvec.matvec(V2f, dJ), fock_matvec.matvec_plain(V2f, dJ)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+    J_cpu, K_cpu = PairSpaceFockBuilder(system, 1e-12, device="cpu").jk(D)
+    scale = max(float(J_cpu.abs().max()), 1.0)
+    assert float((J.cpu() - J_cpu).abs().max()) / scale <= 1e-11
+    assert float((K.cpu() - K_cpu).abs().max()) / scale <= 1e-11
+
+
+def test_direct_jk_on_card_matches_cpu_twin(cuda):
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    system = _water_ccpvdz()
+    D = _density_stack(2, system.n_basis(), 2)
+    builder = StreamingFockBuilder(system, 1e-12, device=cuda)
+    before = eri_kernel.KERNEL.launches
+    J, K = builder.jk_stack_cart(D.to(cuda))
+    torch.cuda.synchronize()
+    assert eri_kernel.KERNEL.launches == before + len(builder.batches)
+    J_cpu, K_cpu = StreamingFockBuilder(system, 1e-12, device="cpu").jk_stack_cart(D)
+    scale = max(float(J_cpu.abs().max()), 1.0)
+    assert float((J.cpu() - J_cpu).abs().max()) / scale <= 1e-11
+    assert float((K.cpu() - K_cpu).abs().max()) / scale <= 1e-11

@@ -16,6 +16,7 @@ from qchem_rs_tpu.utils.basis import BasisSet as JaxBasisSet
 from qchem_rs_tpu.utils.system import MolecularSystem as JaxSystem
 from qchem_rs_tpu_torch import BasisSet, HartreeFockConfig, MolecularSystem, restricted_hartree_fock
 from qchem_rs_tpu_torch import cli
+from qchem_rs_tpu_torch.models.sad import CACHE_ENV
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.utils.interop import system_from_numpy
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -66,6 +67,19 @@ def test_finish_terms_matches_jax_water_sto3g(water_sto3g):
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-11
 
 
+def test_finish_eri_matches_jax_water_sto3g(water_sto3g):
+    jax_sys, cfg, _ = water_sto3g
+    _, jax_eng = _incore_tools(jax_sys, cfg)
+    ref = np.asarray(jax_eng.finish_eri(jax_eng.build()))
+    eng = TiledEriEngine(_port_system("water", "STO-3G"), 1e-12, device="cpu")
+    out = eng.finish_eri(eng.build()).numpy()
+    assert out.shape == ref.shape == (7, 7, 7, 7)
+    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-11
+    # chemists' symmetries: (ij|kl) = (ji|kl) = (kl|ij)
+    np.testing.assert_array_equal(out, out.transpose(1, 0, 2, 3))
+    np.testing.assert_array_equal(out, out.transpose(2, 3, 0, 1))
+
+
 def test_rhf_water_ccpvdz_anchor():
     # the JAX package's CPU fixed point at diag_rms 1e-10 (bench.py:54)
     out = restricted_hartree_fock(
@@ -114,11 +128,66 @@ def test_cli_without_cuda_exits_with_one_line(capsys):
 
 
 def test_rhf_rejects_unported_options():
+    # level shifting and external fields are not ported; "dense" is a Fock
+    # mode the JAX package lacks too
     system = _port_system("hydrogen", "STO-3G")
-    for cfg in (HartreeFockConfig(fock_mode="pair"), HartreeFockConfig(initial_guess="sad"),
-                HartreeFockConfig(level_shift=0.1)):
+    for cfg in (HartreeFockConfig(level_shift=0.1), HartreeFockConfig(electric_field=(0.0, 0.0, 1e-3)),
+                HartreeFockConfig(fock_mode="dense"), HartreeFockConfig(initial_guess="core")):
         with pytest.raises(NotImplementedError):
             restricted_hartree_fock(system, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("mode,keys", [("pair", {"eri_s", "scf_s", "total_s"}),
+                                       ("direct", {"scf_s", "total_s"})])
+def test_rhf_fock_modes_match_jax_water_sto3g(water_sto3g, mode, keys):
+    _, _, ref = water_sto3g
+    out = restricted_hartree_fock(_port_system("water", "STO-3G"),
+                                  HartreeFockConfig(epsilon=1e-10, fock_mode=mode), device="cpu")
+    assert out.converged
+    assert abs(out.total_energy() - ref.total_energy()) <= 1e-9
+    assert abs(out.iterations - ref.iterations) <= 1
+    assert set(out.timings) == keys
+
+
+def test_rhf_starts_from_a_jax_density(water_sto3g):
+    # the converged JAX density carried over as numpy is a fixed point of
+    # the port's in-core SCF: it stops at the first pass that can test it
+    _, _, ref = water_sto3g
+    out = restricted_hartree_fock(_port_system("water", "STO-3G"), HartreeFockConfig(epsilon=1e-8),
+                                  density_guess=ref.density, device="cpu")
+    assert out.converged and out.iterations <= 1
+    assert abs(out.total_energy() - ref.total_energy()) <= 1e-9
+    with pytest.raises(ValueError, match="shape"):
+        restricted_hartree_fock(_port_system("water", "STO-3G"), density_guess=ref.density[:3],
+                                device="cpu")
+
+
+def test_sad_rhf_water_ccpvdz_same_fixed_point_no_more_iterations(tmp_path, monkeypatch):
+    monkeypatch.setenv(CACHE_ENV, str(tmp_path))
+    system = _port_system("water", "cc-pVDZ")
+    cfg = HartreeFockConfig(epsilon=1e-10)
+    huckel = restricted_hartree_fock(system, cfg, device="cpu")
+    sad = restricted_hartree_fock(system, HartreeFockConfig(epsilon=1e-10, initial_guess="sad"),
+                                  device="cpu")
+    assert huckel.converged and sad.converged
+    assert abs(sad.total_energy() - huckel.total_energy()) <= 1e-8
+    assert sad.iterations <= huckel.iterations
+    assert set(sad.timings) == {"guess_s", "one_electron_s", "eri_s", "scf_s", "total_s"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fock-mode", "direct", "--guess", "sad"],
+    ["--fock-mode", "pair", "--screening-threshold", "1e-10"],
+])
+def test_cli_rhf_fock_mode_guess_and_screening_flags(capsys, tmp_path, monkeypatch, flags):
+    monkeypatch.setenv(CACHE_ENV, str(tmp_path))
+    rc = cli.main([
+        "rhf", "-b", os.path.join(DATA, "basis", "STO-3G.json"),
+        "-m", os.path.join(DATA, "mol", "water.json"), "--device", "cpu", *flags,
+    ])
+    assert rc == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 5 and lines[3] == "hartree fock energy: -74.963"
 
 
 def test_rhf_defaults_to_cuda_and_raises_without_it():
