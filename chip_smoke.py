@@ -7,11 +7,14 @@
                                        # direct pass at three batch sizes
 
 Builds both hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
-nvcc process started together) and prints ptxas's registers, stack frame
-and spills for every instantiation; holds each kernel against its plain
-PyTorch twin on the card (kernel 1 for all 25 (Lb, Lk) with ragged
-primitive counts, its Boys function against ``boys``, kernel 2 at m = 150,
-14400 and 14401); runs the port's in-core RHF on water/cc-pVDZ and on
+nvcc process started together; kernel 1 in its two parts, the template
+``eri_tile.cu`` and the high-L ``eri_tile_highl.cu``) and prints the build
+time and ptxas's registers, stack frame and spills for every
+instantiation; holds each kernel against its plain PyTorch twin on the
+card (kernel 1 for all 49 (Lb, Lk) <= (6, 6) with ragged primitive counts,
+its Boys function F_0..F_12 against ``boys``, kernel 2 at m = 150, 14400
+and 14401); runs the port's in-core RHF on water/cc-pVDZ, Cartesian and
+spherical, and on
 benzene/cc-pVDZ (the headline configuration: diag_rms 1e-8), checks the
 energies against their anchors, shows that the benzene run went through
 both kernels, and times each kernel against its twin, its bound and the
@@ -21,11 +24,17 @@ lean pair and direct Fock modes and a pair run from the Hückel guess,
 each against its anchor, with its peak device memory and the launches of
 each kernel; kernel 2 on the pair-space V2f (m = 19136) and W @ dK timed
 against their bounds; kernel 1 and the digestion per direct pass; and UHF
-on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Every
-phase fails loudly; the script exits non-zero on any failed check and
-when CUDA is not available. Two lines before the last are JSON objects:
-the launches of every path, and one entry per kernel (at the benzene
-in-core shapes); the last line is a JSON object naming the device.
+on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Then
+every basis: spherical naphthalene/cc-pVDZ (SAD) and UHF OH/6-31G*
+(spherical) in the three modes; ferrocene/6-31G* (Cartesian, f shells on
+Fe, SAD) in the three modes, which runs the high-L part, timed on the
+build's f-shell class pairs; and the Zn atom in 6-31G* on the card against
+the port on the CPU. Every phase fails loudly; the script exits non-zero
+on any failed check and when CUDA is not available. Two lines before the
+last are JSON objects: the launches of every path, and one entry per
+kernel (the template part and kernel 2 at the benzene in-core shapes, the
+high-L part at the ferrocene build's); the last line is a JSON object
+naming the device.
 """
 
 from __future__ import annotations
@@ -49,6 +58,11 @@ BENZENE_E_CARD = -230.7229951380  # the port's benzene/cc-pVDZ value on an H100
 NAPHTHALENE_E = -383.37852231
 # OH doublet/6-31G fixed point (JAX package on the CPU, tests/test_scf_uhf.py:83)
 OH_E = -75.363169916
+# water/cc-pVDZ spherical fixed point (diag_rms 1e-10, JAX package on the CPU)
+WATER_SPH_E = -76.02679869798291
+# naphthalene/cc-pVDZ spherical, diag_rms 1e-8: a TPU run of the JAX package
+# (README, docs/PROFILE_r03.md), noisy to ~1e-7 as the Cartesian anchor
+NAPHTHALENE_SPH_E = -383.37711111
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
@@ -95,7 +109,8 @@ def print_ptxas(kernel) -> None:
         if m:
             mangled = m.group(1)
             args = ",".join(re.findall(r"Li(\d+)E", mangled))
-            base = re.search(r"(eri_bra_tiles_kernel|boys_probe_kernel|fock_matvec_kernel)", mangled)
+            base = re.search(r"(eri_bra_tiles_highl_kernel|eri_bra_tiles_kernel|boys_probe_kernel|"
+                             r"fock_matvec_kernel)", mangled)
             name = f"{base.group(1) if base else mangled}<{args}>"
             continue
         if name and ("stack frame" in line or "Used" in line):
@@ -124,28 +139,35 @@ def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: 
     return (E1, p1, P1, p2, P2), eri_kernel.prim_counts(E1, T1), eri_kernel.prim_counts(E2, T2)
 
 
-def check_kernel1(eri_kernel, ncart) -> float:
-    """Kernel 1 against its twin for every (Lb, Lk) in {0..4}^2 with ragged
-    primitive counts, at the benzene tile edge (32), three tiles per call."""
+def check_kernel1(eri_kernel, ncart) -> tuple[float, float]:
+    """Kernel 1 against its twin for every (Lb, Lk) in {0..6}^2 with ragged
+    primitive counts, at the benzene tile edge (32), three tiles per call;
+    each class must launch its own part (the template for Lb, Lk <= 4, the
+    high-L part for the rest). Returns the worst abs error of each part."""
     rng = np.random.default_rng(7)
-    prims = [9, 4, 3, 2, 1]
-    worst_abs = 0.0
-    for Lb in range(5):
-        for Lk in range(5):
+    prims = [9, 4, 3, 2, 1, 2, 1]
+    worst = {eri_kernel.KERNEL: 0.0, eri_kernel.HIGHL_KERNEL: 0.0}
+    for Lb in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+        for Lk in range(eri_kernel.HIGHL_MAX_SIDE + 1):
             a, c, T = prims[Lb], prims[Lk], 32
             A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+            part = eri_kernel.KERNEL if max(Lb, Lk) <= eri_kernel.KERNEL_MAX_SIDE \
+                else eri_kernel.HIGHL_KERNEL
             args, bra, ket = ragged_class(rng, eri_kernel, Lb, Lk, a, c, A, T, T)
             ti, tj = np.array([0, T, T]), np.array([T, 0, T])
+            before = part.launches
             out = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, T, T, bra, ket)
             ref = eri_kernel.bra_tiles_plain(Lb, Lk, *args, ti, tj, T, T, bra, ket)
             torch.cuda.synchronize()
             err, rel = rel_err(out, ref)
-            print(f"kernel1 Lb={Lb} Lk={Lk} a={a} c={c} A={A} (ragged counts): "
+            print(f"kernel1 {part.source} Lb={Lb} Lk={Lk} a={a} c={c} A={A} (ragged counts): "
                   f"max rel err {rel:.3e}", flush=True)
+            if part.launches != before + 1:
+                fail(f"class ({Lb}, {Lk}) did not launch {part.source}")
             if not rel <= KERNEL1_RTOL:
                 fail(f"kernel 1 disagrees with its twin at Lb={Lb} Lk={Lk}: {rel:.3e}")
-            worst_abs = max(worst_abs, err)
-    return worst_abs
+            worst[part] = max(worst[part], err)
+    return worst[eri_kernel.KERNEL], worst[eri_kernel.HIGHL_KERNEL]
 
 
 def check_boys(eri_kernel) -> None:
@@ -202,9 +224,14 @@ def check_kernel2(fock_matvec) -> dict:
     return res
 
 
-def run_rhf(Q, mol: str, eps: float, max_iterations: int):
-    basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "cc-pVDZ.json"))
-    system = Q.MolecularSystem.load(os.path.join(ROOT, "data", "mol", f"{mol}.json"), basis)
+def load_system(Q, mol: str, basis: str = "cc-pVDZ", spherical: bool = False):
+    basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", f"{basis}.json"))
+    return Q.MolecularSystem.load(os.path.join(ROOT, "data", "mol", f"{mol}.json"), basis,
+                                  spherical=spherical)
+
+
+def run_rhf(Q, mol: str, eps: float, max_iterations: int, spherical: bool = False):
+    system = load_system(Q, mol, spherical=spherical)
     cfg = Q.HartreeFockConfig(epsilon=eps, max_iterations=max_iterations)
     t0 = time.perf_counter()
     out = Q.restricted_hartree_fock(system, cfg, device="cuda")
@@ -546,6 +573,158 @@ def uhf_6_31g(Q, kernels: dict, paths: dict) -> None:
                 fail(f"UHF O2/6-31G triplet energies {energies} disagree or leave (-149.8, -149.3)")
 
 
+def naphthalene_spherical(Q, kernels: dict, paths: dict) -> None:
+    """RHF on naphthalene/cc-pVDZ in spherical AOs (180) from the SAD guess
+    through the three Fock modes, each against the spherical anchor and
+    the three against each other."""
+    system = load_system(Q, "naphthalene", spherical=True)
+    both = ("eri_tile", "fock_matvec")
+    energies = []
+    for mode, used in (("incore", both), ("pair", both), ("direct", ("eri_tile",))):
+        cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=150, fock_mode=mode,
+                                  initial_guess="sad")
+        label = f"naphthalene/cc-pVDZ spherical {mode} sad"
+        out, launches, peak, _ = drive(
+            kernels, label, lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"), used)
+        paths[f"rhf naphthalene spherical {mode} sad"] = dict(
+            launches, iterations=out.iterations, peak_bytes=peak, total_s=out.timings["total_s"])
+        dE = out.total_energy() - NAPHTHALENE_SPH_E
+        print(f"{label}: dE {dE:.2e} from the anchor", flush=True)
+        if abs(dE) > 1e-6:
+            fail(f"{label} lies {dE:.2e} Eh from its anchor")
+        energies.append(out.total_energy())
+    spread = max(energies) - min(energies)
+    print(f"naphthalene/cc-pVDZ spherical: {system.n_basis()} AOs, spread {spread:.2e} Eh over the "
+          f"modes", flush=True)
+    if spread > 1e-7:
+        fail("naphthalene/cc-pVDZ spherical modes disagree by more than 1e-7 Eh")
+
+
+def uhf_spherical(Q, kernels: dict, paths: dict) -> None:
+    """UHF on the OH doublet in spherical 6-31G* through the three modes at
+    diag_rms 1e-10; they must agree within 1e-8."""
+    system = load_system(Q, "hydroxyl", "6-31G_st", spherical=True)
+    energies = []
+    for mode in ("incore", "pair", "direct"):
+        cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=2,
+                                  fock_mode=mode)
+        used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
+        out, launches, peak, _ = drive(
+            kernels, f"UHF hydroxyl/6-31G* spherical {mode}",
+            lambda: Q.unrestricted_hartree_fock(system, cfg, device="cuda"), used)
+        paths[f"uhf hydroxyl spherical {mode}"] = dict(
+            launches, iterations=out.iterations, peak_bytes=peak, total_s=out.timings["total_s"])
+        energies.append(out.total_energy())
+    spread = max(energies) - min(energies)
+    print(f"UHF OH/6-31G* spherical: spread {spread:.2e} Eh over the modes", flush=True)
+    if spread > 1e-8:
+        fail(f"UHF OH/6-31G* spherical modes disagree: {energies}")
+
+
+def ferrocene(Q, kernels: dict, paths: dict):
+    """RHF on ferrocene/6-31G* (Cartesian, 209 AOs, an f shell on Fe) from
+    the SAD guess through the three Fock modes: every build and direct pass
+    runs the high-L part. Returns the system and the in-core run's
+    launches."""
+    system = load_system(Q, "ferrocene", "6-31G_st")
+    hl = ("eri_tile", "eri_tile_highl")
+    energies, incore = [], None
+    for mode, used in (("incore", hl + ("fock_matvec",)), ("pair", hl + ("fock_matvec",)),
+                       ("direct", hl)):
+        cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=200, fock_mode=mode,
+                                  initial_guess="sad")
+        out, launches, peak, _ = drive(
+            kernels, f"ferrocene/6-31G* {mode} sad",
+            lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"), used)
+        paths[f"rhf ferrocene {mode} sad"] = dict(
+            launches, iterations=out.iterations, peak_bytes=peak, total_s=out.timings["total_s"])
+        energies.append(out.total_energy())
+        incore = launches if mode == "incore" else incore
+    spread = max(energies) - min(energies)
+    print(f"ferrocene/6-31G*: {system.n_basis()} AOs, E {energies[0]:.10f}, spread {spread:.2e} Eh "
+          f"over the modes", flush=True)
+    if spread > 1e-7:
+        fail(f"ferrocene/6-31G* modes disagree: {energies}")
+    return system, incore
+
+
+def time_highl(system, eri_kernel) -> dict:
+    """The high-L part on the f-shell class pairs of one ferrocene build:
+    against its twin on every twin-sized batch, then the time of its
+    launches (in all, and by class pair), of the twin and the bound of that
+    work."""
+    from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
+
+    engine = TiledEriEngine(system, 1e-12, device="cuda")
+    metas = engine.layout.metas
+
+    def highl(Lb, Lk):
+        return max(Lb, Lk) > eri_kernel.KERNEL_MAX_SIDE
+
+    def of(batches):
+        return [b for b in batches
+                if highl(metas[b[0]].la + metas[b[0]].lb, metas[b[1]].la + metas[b[1]].lb)]
+
+    kernel_batches, twin_batches = of(engine.batches()), of(engine.batches(twin=True))
+    worst = 0.0
+    for b in twin_batches:
+        out, ref = engine.bra_batch(*b), engine.bra_batch(*b, fn=eri_kernel.bra_tiles_plain)
+        err, rel = rel_err(out, ref)
+        if not rel <= KERNEL1_RTOL:
+            fail(f"the high-L part disagrees with its twin on ferrocene class pair {b[:2]}: {rel:.3e}")
+        worst = max(worst, err)
+    before = eri_kernel.HIGHL_KERNEL.launches
+    ms = [cuda_ms(lambda: [engine.bra_batch(*b) for b in kernel_batches], 5) for _ in range(2)]
+    plain_ms = cuda_ms(
+        lambda: [engine.bra_batch(*b, fn=eri_kernel.bra_tiles_plain) for b in twin_batches], 1)
+    if eri_kernel.HIGHL_KERNEL.launches == before:
+        fail("the ferrocene build's f-shell class pairs did not launch the high-L part")
+    by_class: dict = {}
+    for b in kernel_batches:
+        m1, m2 = metas[b[0]], metas[b[1]]
+        by_class.setdefault("({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb))),
+                            []).append(b)
+    per_class = {k: cuda_ms(lambda: [engine.bra_batch(*b) for b in bs], 3) for k, bs in by_class.items()}
+    summed = sum(per_class.values())
+    print("high-L part by class pair on ferrocene: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / summed:.3f})" for k, v in sorted(per_class.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    nbytes, flops = engine.bra_kernel_work(highl)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
+    res = {"max_abs_err": worst, "ms": float(np.mean(ms)), "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    print(f"high-L part over the ferrocene build's f-shell class pairs ({len(kernel_batches)} "
+          f"launches): {res['ms']:.3f} ms (runs {ms}), twin {plain_ms:.3f} ms, max abs err "
+          f"{worst:.3e}; must move {nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do "
+          f"{flops / 1e9:.2f} GFLOP over the real primitive quartets ({flops_ms:.4f} ms): bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']}", flush=True)
+    return res
+
+
+def zinc_atom(Q, kernels: dict, paths: dict) -> None:
+    """RHF on the Zn atom in 6-31G* (39 AOs, an f shell) on the card and
+    through the port on the CPU: the energies must agree within 1e-9. Both
+    converge to diag_rms 1e-12: at 1e-10 the stop rule leaves the energy
+    some 3e-9 from the fixed point, and the two devices' trajectories (the
+    card's FP64 atomics) may stop on different passes."""
+    basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "6-31G_st.json"))
+    system = Q.MolecularSystem.from_arrays(np.array([30]), np.zeros((1, 3)), basis)
+    cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=200)
+    out, launches, peak, _ = drive(
+        kernels, "Zn atom/6-31G* incore", lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"),
+        ("eri_tile", "eri_tile_highl", "fock_matvec"))
+    paths["rhf zinc atom incore"] = dict(launches, iterations=out.iterations, peak_bytes=peak,
+                                         total_s=out.timings["total_s"])
+    t0 = time.perf_counter()
+    cpu = Q.restricted_hartree_fock(system, cfg, device="cpu")
+    dE = out.total_energy() - cpu.total_energy()
+    print(f"Zn atom/6-31G*: card {out.total_energy():.10f}, CPU {cpu.total_energy():.10f} "
+          f"({cpu.iterations} iterations, {time.perf_counter() - t0:.1f} s), dE {dE:.2e}", flush=True)
+    if not (cpu.converged and abs(dE) <= 1e-9):
+        fail(f"the Zn atom on the card lies {dE:.2e} Eh from the CPU run")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -567,15 +746,16 @@ def main(argv: list[str]) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 1. build both kernels from the checkout's sources
-    kernels = (eri_kernel.KERNEL, eri_kernel.BOYS_PROBE, fock_matvec.KERNEL)
+    kernels = (eri_kernel.KERNEL, eri_kernel.HIGHL_KERNEL, eri_kernel.BOYS_PROBE, fock_matvec.KERNEL)
     t0 = time.perf_counter()
     load_all(list(kernels))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(eri_kernel.KERNEL)
+    print_ptxas(eri_kernel.HIGHL_KERNEL)
     print_ptxas(fock_matvec.KERNEL)
 
     # 2. each kernel against its twin
-    k1_abs = check_kernel1(eri_kernel, ncart)
+    k1_abs, highl_abs = check_kernel1(eri_kernel, ncart)
     check_boys(eri_kernel)
     k2 = check_kernel2(fock_matvec)
 
@@ -586,6 +766,12 @@ def main(argv: list[str]) -> int:
           f"{out.iterations} iterations, converged {out.converged}, {wall:.2f} s", flush=True)
     if not (out.converged and abs(dE) <= 1e-8):
         fail("water/cc-pVDZ misses its anchor")
+    _, _, out, wall = run_rhf(Q, "water", 1e-10, 100, spherical=True)
+    dE = out.total_energy() - WATER_SPH_E
+    print(f"water/cc-pVDZ spherical: E {out.total_energy():.10f} (dE {dE:.2e} from the JAX CPU "
+          f"value), {out.iterations} iterations, converged {out.converged}, {wall:.2f} s", flush=True)
+    if not (out.converged and abs(dE) <= 1e-8):
+        fail("water/cc-pVDZ spherical misses the JAX package's value")
 
     # 4. the headline: benzene/cc-pVDZ at diag_rms 1e-8, counting launches
     for k in kernels:
@@ -624,12 +810,21 @@ def main(argv: list[str]) -> int:
 
     # 6. the scale path: naphthalene/cc-pVDZ through every Fock mode, the
     # kernels on its new paths, and UHF at BASELINE config 3
-    named = {"eri_tile": eri_kernel.KERNEL, "fock_matvec": fock_matvec.KERNEL}
+    named = {"eri_tile": eri_kernel.KERNEL, "eri_tile_highl": eri_kernel.HIGHL_KERNEL,
+             "fock_matvec": fock_matvec.KERNEL}
     paths = {"rhf benzene incore huckel": dict(launches)}
     naph, pair_run = naphthalene_rhf(Q, named, paths)
     pair_kernel_numbers(naph, pair_run.density, fock_matvec)
     direct_pass_numbers(naph, pair_run.density, eri_kernel, profile="--profile" in argv)
     uhf_6_31g(Q, named, paths)
+
+    # 7. every basis: spherical AOs through every mode, f shells through the
+    # high-L part
+    naphthalene_spherical(Q, named, paths)
+    uhf_spherical(Q, named, paths)
+    fc_system, fc_launches = ferrocene(Q, named, paths)
+    hl = time_highl(fc_system, eri_kernel)
+    zinc_atom(Q, named, paths)
     print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [
@@ -638,6 +833,13 @@ def main(argv: list[str]) -> int:
          "launches_per_run": launches["eri_tile"], "max_abs_err": max(k1_abs, k1["max_abs_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+        {"name": "eri_tile_highl", "route": "cuda",
+         "source": "qchem_rs_tpu_torch/csrc/eri_tile_highl.cu",
+         "replaces": "qchem_rs_tpu/ops/eri_pallas.py:205 and :175 for L <= 8; beyond, the XLA f64 "
+                     "fallback of qchem_rs_tpu/ops/eri_tiled.py:638",
+         "launches": fc_launches["eri_tile_highl"], "launches_per_run": fc_launches["eri_tile_highl"],
+         "max_abs_err": max(highl_abs, hl["max_abs_err"]), "ms": hl["ms"], "plain_ms": hl["plain_ms"],
+         "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"], "library_ms": hl["library_ms"]},
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],

@@ -4,6 +4,8 @@
         -m data/mol/naphthalene.json --epsilon 1e-8 --fock-mode pair --guess sad
     python -m qchem_rs_tpu_torch.cli uhf -b data/basis/6-31G.json \\
         -m data/mol/hydroxyl.json --spin-multiplicity 2
+    python -m qchem_rs_tpu_torch.cli rhf -b data/basis/cc-pVDZ.json \\
+        -m data/mol/water.json --spherical
 
 Prints the lines of ``qchem_rs_tpu/cli.py`` (the reference CLI's
 main.rs:98-106 and 143-152 format, and the JAX CLI's <S^2> line for UHF).
@@ -53,7 +55,7 @@ def _load(args):
     except (OSError, ValueError, KeyError) as e:
         raise CliError(f"cannot load basis set {args.basis_set!r}: {e}") from e
     try:
-        system = MolecularSystem.load(args.molecule, basis)
+        system = MolecularSystem.load(args.molecule, basis, spherical=args.spherical)
     except (OSError, ValueError, KeyError) as e:
         raise CliError(f"cannot load molecule {args.molecule!r}: {e}") from e
     return system, device
@@ -137,6 +139,8 @@ def _add_flags(p: argparse.ArgumentParser, uhf: bool) -> None:
     p.add_argument("--guess", choices=["huckel", "sad"], default="huckel",
                    help="initial density: huckel (rhf.rs:133-150) or sad (superposition of "
                    "atomic densities)")
+    p.add_argument("--spherical", action="store_true",
+                   help="use real solid-harmonic (5d/7f) basis functions instead of Cartesian")
     p.add_argument("--screening-threshold", type=float, default=1e-12,
                    help="Schwarz screening threshold for pair tiles (0 disables)")
     p.add_argument("--fock-mode", choices=["incore", "pair", "direct"], default="incore",

@@ -40,22 +40,24 @@
 //   into constant indices, so R sits in registers (L <= 4) or, for L >= 5,
 //   in the thread's own column of shared memory, and no plan is read from
 //   device memory.
-// - Boys without division in any loop: the Kummer series is one Horner
-//   polynomial whose coefficients prod_k 1/(2m+2k+1) are compile-time
-//   constants, and the downward and upward recursions multiply by
-//   compile-time reciprocals (tests/test_torch_integrals.py holds the same
-//   arithmetic on the CPU against ops/boys.py::boys).
+// - Boys without division in any loop (csrc/boys.cuh, shared with the
+//   high-L part).
 //
 // The 25 instantiations (LB, LK <= 4, every pair class up to (d, d)) are
 // built as 25 translation units (KERNEL_PART) by concurrent nvcc processes;
-// compiled without KERNEL_PART the file is one whole library.
+// compiled without KERNEL_PART the file is one whole library. Pair classes
+// with LB or LK of 5 or 6 (f-shell pairs) take the runtime-L kernel of
+// csrc/eri_tile_highl.cu, with the same contract and output layout.
 //
 // C interface (bound with ctypes): eri_bra_tiles(...) and eri_boys(...)
-// launch on `stream` and return the cudaError_t of the launch.
+// launch on `stream` and return the cudaError_t of the launch; eri_boys
+// runs the device Boys function alone, to order 12.
 
 #include <cuda_runtime.h>
 
 #include <utility>
+
+#include "boys.cuh"
 
 #ifndef KERNEL_PART
 #define KERNEL_PART -1
@@ -65,8 +67,6 @@ namespace qchem_eri {
 
 #define HD __host__ __device__
 
-constexpr int kMaxL = 8;
-constexpr double kPi = 3.141592653589793238462643383279502884;
 constexpr int kMaxSide = 4;     // LB, LK <= 4: pair classes up to (d, d)
 constexpr int kAccBudget = 24;  // doubles of sums a thread keeps in registers
 
@@ -143,75 +143,6 @@ template <int LK, int S2>
 struct OddSign {  // sign[s2] of the gather is -1
   static constexpr bool v = odd_sign(LK, S2);
 };
-
-// ---------------------------------------------------------------- Boys
-
-template <int K>
-struct RcpOdd {  // 1 / (2K + 1)
-  static constexpr double v = 1.0 / (2 * K + 1);
-};
-
-template <int M, int I>
-struct KummerCoef {  // prod_{k=0..I} 1 / (2M + 2k + 1)
-  static constexpr double v = KummerCoef<M, I - 1>::v * RcpOdd<M + I>::v;
-};
-template <int M>
-struct KummerCoef<M, 0> {
-  static constexpr double v = RcpOdd<M>::v;
-};
-
-template <int M>
-constexpr int kSeriesTerms = 2 * M + 40;  // ops/boys.py::series_terms
-
-// sum_{i=0..N} c_i x^i by Horner, highest coefficient first
-template <int M, int N, int... I>
-__device__ __forceinline__ double kummer(double x, std::integer_sequence<int, I...>) {
-  double acc = KummerCoef<M, N>::v;
-  ((acc = fma(acc, x, KummerCoef<M, N - 1 - I>::v)), ...);
-  return acc;
-}
-
-template <int... I>
-__device__ __forceinline__ void boys_down(double x, double eT, double* F,
-                                          std::integer_sequence<int, I...>) {
-  // m = M - I: F_{m-1} = (2T F_m + e^-T) / (2m - 1)
-  constexpr int M = sizeof...(I);
-  ((F[M - I - 1] = fma(x, F[M - I], eT) * RcpOdd<M - I - 1>::v), ...);
-}
-
-// F_0..F_M(T): the three branches of ops/boys.py::boys, with one division
-// (1/T) and none inside a loop
-template <int M>
-__device__ __forceinline__ void boys(double T, double* F) {
-  if (T < 0.01 && M == 0) {
-    // F_0(T) = sum_k (-T)^k / (k! (2k+1)), 7 terms
-    double f = 1.0 / 9360.0;
-    f = fma(-T, f, 1.0 / 1320.0);
-    f = fma(-T, f, 1.0 / 216.0);
-    f = fma(-T, f, 1.0 / 42.0);
-    f = fma(-T, f, 1.0 / 10.0);
-    f = fma(-T, f, 1.0 / 3.0);
-    F[0] = fma(-T, f, 1.0);
-    return;
-  }
-  if (M == 0 || T > M + 1.5) {
-    const double invT = 1.0 / T;
-    F[0] = 0.5 * sqrt(kPi * invT) * erf(sqrt(T));
-    if (M > 0) {
-      // upward recursion from the closed form, contracting for T > m + 1/2
-      const double eT = exp(-T);
-      const double inv2T = 0.5 * invT;
-#pragma unroll
-      for (int m = 0; m < M; ++m) F[m + 1] = fma(static_cast<double>(2 * m + 1), F[m], -eT) * inv2T;
-    }
-    return;
-  }
-  // Kummer series at M, then exact downward recursion
-  const double eT = exp(-T);
-  const double x = 2.0 * T;
-  F[M] = eT * kummer<M, kSeriesTerms<M>>(x, std::make_integer_sequence<int, kSeriesTerms<M>>{});
-  boys_down(x, eT, F, std::make_integer_sequence<int, M>{});
-}
 
 // ---------------------------------------------------------------- R table
 
@@ -457,9 +388,10 @@ const Entry* find(int lb, int lk) {
 }
 
 using BoysFn = int (*)(int, const double*, double*, cudaStream_t);
-const BoysFn kBoys[kMaxL + 1] = {&launch_boys<0>, &launch_boys<1>, &launch_boys<2>,
-                                 &launch_boys<3>, &launch_boys<4>, &launch_boys<5>,
-                                 &launch_boys<6>, &launch_boys<7>, &launch_boys<8>};
+const BoysFn kBoys[kMaxBoys + 1] = {
+    &launch_boys<0>, &launch_boys<1>, &launch_boys<2>,  &launch_boys<3>, &launch_boys<4>,
+    &launch_boys<5>, &launch_boys<6>, &launch_boys<7>,  &launch_boys<8>, &launch_boys<9>,
+    &launch_boys<10>, &launch_boys<11>, &launch_boys<12>};
 #endif
 
 }  // namespace qchem_eri
@@ -497,7 +429,7 @@ extern "C" int eri_bra_tiles(int Lb, int Lk, int a, int c, int A, int T1, int T2
 
 // F_0..F_M at n points T with the kernel's own Boys function: F is (M+1, n).
 extern "C" int eri_boys(int M, int n, const void* T, void* F, void* stream) {
-  if (M < 0 || M > qchem_eri::kMaxL || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 0 || M > qchem_eri::kMaxBoys || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return qchem_eri::kBoys[M](n, static_cast<const double*>(T), static_cast<double*>(F),
                              static_cast<cudaStream_t>(stream));
 }

@@ -19,7 +19,10 @@ The three Fock modes share one loop and differ in G:
   (``ops/fock_stream.py``).
 
 ``initial_guess="sad"`` or a ``density_guess`` start the loop from another
-density than Hückel's.
+density than Hückel's. A spherical system (``MolecularSystem(...,
+spherical=True)``) runs every mode in its working basis: S, H, X, D, DIIS
+and the orbitals are nsph-sized, and each Fock mode projects its Cartesian
+integrals (``finish_terms``, or the builders' ``jk`` sandwiches).
 """
 
 from __future__ import annotations
@@ -138,8 +141,16 @@ def check_device(device) -> torch.device:
     return device
 
 
+def check_occupied(nocc: int, n: int) -> None:
+    """Raise when ``nocc`` occupied orbitals do not fit the ``n`` AOs of
+    the working basis."""
+    if nocc > n:
+        raise ValueError(f"{nocc} occupied orbitals do not fit the {n} AOs of the basis")
+
+
 def core_hamiltonian(system: MolecularSystem, device):
-    """(S, H, X): overlap, core Hamiltonian T + V and Löwdin X."""
+    """(S, H, X): overlap, core Hamiltonian T + V and Löwdin X, in the
+    system's working basis."""
     S = one_electron.overlap(system, device)
     H = one_electron.kinetic(system, device) + one_electron.nuclear(system, device)
     return S, H, scf.lowdin_x(S)
@@ -170,7 +181,8 @@ def restricted_hartree_fock(
         raise ValueError(f"RHF needs an even electron count, got {n_electrons}")
     nocc = n_electrons // 2
     device = check_device(device)
-    n = system.n_basis()
+    n = system.n_basis()  # the working basis (spherical for a spherical system)
+    check_occupied(nocc, n)
 
     timings: dict = {}
     if density_guess is None and config.initial_guess == "sad":

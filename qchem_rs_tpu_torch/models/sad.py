@@ -12,8 +12,11 @@ integrals and ``TiledEriEngine.finish_eri`` on the CPU, named explicitly,
 and its SCF runs in numpy, as the JAX package solves its atoms on its CPU
 backend. The molecular SCF stays on the caller's device. Densities are
 geometry-free and are kept in a disk cache: ``QCHEM_TORCH_SAD_CACHE``, or
-``qchem_rs_tpu_torch/_cache/sad`` beside the package. Cartesian AOs only,
-as ``MolecularSystem``.
+``qchem_rs_tpu_torch/_cache/sad`` beside the package. A spherical
+system's atoms are solved in the spherical basis: the atom's Cartesian S,
+H and ERIs are projected with its own transform
+(``qchem_rs_tpu/models/sad.py:102-145``), and the cache keys carry the AO
+convention, so that Cartesian and spherical atoms never share a file.
 """
 
 from __future__ import annotations
@@ -79,21 +82,29 @@ def _scf_from_integrals(S, H, V, Z: int) -> np.ndarray:
     return D
 
 
-def compute_atomic_density(basis, Z: int) -> np.ndarray:
-    """Density of the neutral atom ``Z`` in ``basis``, solved on the CPU."""
+def compute_atomic_density(basis, Z: int, spherical: bool = False) -> np.ndarray:
+    """Density of the neutral atom ``Z`` in ``basis``, solved on the CPU, in
+    the spherical basis when ``spherical``."""
     system = MolecularSystem([Atom(Z, np.zeros(3))], basis)
     S = one_electron.overlap(system, "cpu").numpy()
     H = (one_electron.kinetic(system, "cpu") + one_electron.nuclear(system, "cpu")).numpy()
     engine = TiledEriEngine(system, 0.0, device="cpu")
     V = engine.finish_eri(engine.build()).numpy()
+    if spherical:
+        T = MolecularSystem([Atom(Z, np.zeros(3))], basis, spherical=True).sph_T
+        S, H = T.T @ S @ T, T.T @ H @ T
+        V = np.einsum("pqrs,pi,qj,rk,sl->ijkl", V, T, T, T, T, optimize=True)
     return _scf_from_integrals(S, H, V, Z)
 
 
-def _element_fingerprint(basis, Z: int) -> str:
-    """Content hash of element Z's shells (l, exponents, coefficients), so
-    that densities are shared by basis files with the same element data."""
+def _element_fingerprint(basis, Z: int, spherical: bool = False) -> str:
+    """Content hash of element Z's shells (l, exponents, coefficients) and
+    the AO convention, so that densities are shared by basis files with the
+    same element data and never between Cartesian and spherical atoms."""
     h = hashlib.sha256()
     h.update(f"sad-torch-v1|{Z}".encode())
+    if spherical:
+        h.update(b"|spherical")
     for spec in basis.shells_for(Z):
         h.update(str(spec.l).encode())
         h.update(np.asarray(spec.exponents, np.float64).tobytes())
@@ -101,19 +112,19 @@ def _element_fingerprint(basis, Z: int) -> str:
     return h.hexdigest()[:24]
 
 
-def _atomic_densities(basis, zs: list[int]) -> dict[int, np.ndarray]:
+def _atomic_densities(basis, zs: list[int], spherical: bool = False) -> dict[int, np.ndarray]:
     """Densities of the elements ``zs``: from the disk cache, else solved
     and written there (through a temporary file and a rename)."""
     out: dict[int, np.ndarray] = {}
     cache = _disk_dir()
     for Z in zs:
-        path = cache / f"{_element_fingerprint(basis, Z)}.npy"
+        path = cache / f"{_element_fingerprint(basis, Z, spherical)}.npy"
         try:
             out[Z] = np.load(path)
             continue
         except (OSError, ValueError):
             pass
-        out[Z] = compute_atomic_density(basis, Z)
+        out[Z] = compute_atomic_density(basis, Z, spherical)
         cache.mkdir(parents=True, exist_ok=True)
         tmp = cache / f".{path.stem}.{os.getpid()}.tmp.npy"  # np.save keeps a .npy name
         np.save(tmp, out[Z])
@@ -122,15 +133,14 @@ def _atomic_densities(basis, zs: list[int]) -> dict[int, np.ndarray]:
 
 
 def _atom_spans(system) -> list[tuple[int, int, int]]:
-    """Per-atom (ordinal, ao_offset, nao) spans. Shells are built atom by
-    atom (``utils/system.py``), so each atom owns one AO block."""
-    per_atom = [0] * len(system.atoms)
-    for s in system.shells:
-        per_atom[s.atom_index] += (s.l + 1) * (s.l + 2) // 2
+    """Per-atom (ordinal, ao_offset, nao) spans in the working basis (2l+1
+    AOs a shell when spherical). Shells are built atom by atom
+    (``utils/system.py``), so each atom owns one AO block."""
+    per_atom = np.bincount(system.ao_atom_indices(), minlength=len(system.atoms))
     spans, off = [], 0
     for atom, nao in zip(system.atoms, per_atom):
-        spans.append((atom.ordinal, off, nao))
-        off += nao
+        spans.append((atom.ordinal, off, int(nao)))
+        off += int(nao)
     return spans
 
 
@@ -138,7 +148,7 @@ def sad_guess(system, charge: int = 0) -> np.ndarray:
     """Block-diagonal SAD density (nao, nao) for ``system``, scaled so that
     Tr[D S] is the electron count (neutral-atom sum minus ``charge``)."""
     spans = _atom_spans(system)
-    atoms = _atomic_densities(system.basis, sorted({Z for Z, _, _ in spans}))
+    atoms = _atomic_densities(system.basis, sorted({Z for Z, _, _ in spans}), system.spherical)
     n = system.n_basis()
     D = np.zeros((n, n))
     for Z, off, nao in spans:

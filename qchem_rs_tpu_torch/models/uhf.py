@@ -16,7 +16,9 @@ Three Fock modes, as in RHF:
   row scan K^s_ij = sum_kl (ik|jl) D^s_kl over AO rows i;
 - "pair": J and K per spin from the pair-space matrices;
 - "direct": one recomputation of the integrals digests both spins
-  (``StreamingFockBuilder.jk_stack_cart``).
+  (``StreamingFockBuilder.jk_stack``).
+
+A spherical system runs every mode in its working (spherical) basis.
 """
 
 from __future__ import annotations
@@ -32,7 +34,13 @@ import torch
 from qchem_rs_tpu_torch.config import HartreeFockConfig
 from qchem_rs_tpu_torch.models import scf
 from qchem_rs_tpu_torch.models.diis import Diis
-from qchem_rs_tpu_torch.models.rhf import _check_config, _sync, check_device, core_hamiltonian
+from qchem_rs_tpu_torch.models.rhf import (
+    _check_config,
+    _sync,
+    check_device,
+    check_occupied,
+    core_hamiltonian,
+)
 from qchem_rs_tpu_torch.ops import fock_matvec, one_electron
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
@@ -146,7 +154,8 @@ def unrestricted_hartree_fock(
         raise ValueError("espan is implemented for the RHF loops only")
     nocc = scf.electron_counts(system.n_electrons(config.charge), config.spin_multiplicity)
     device = check_device(device)
-    n = system.n_basis()
+    n = system.n_basis()  # the working basis (spherical for a spherical system)
+    check_occupied(max(nocc), n)
 
     timings: dict = {}
     if density_guess is None and config.initial_guess == "sad":
@@ -196,7 +205,7 @@ def unrestricted_hartree_fock(
             builder = StreamingFockBuilder(system, thr, device=device)
 
             def jk_fn(D):
-                Js, Ks = builder.jk_stack_cart(D)  # one recomputation for both spins
+                Js, Ks = builder.jk_stack(D)  # one recomputation for both spins
                 return Js[0] + Js[1], Ks
     t1 = time.perf_counter()
     st = _uhf_scf(H, X, S, nocc, config, jk_fn, D0)

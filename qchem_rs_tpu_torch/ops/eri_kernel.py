@@ -20,7 +20,13 @@ Replaces the three TPU kernels of ``qchem_rs_tpu/ops/eri_pallas.py``:
 (:191). Those split the chain differently per class only because of VMEM
 size and Mosaic's unroll limits; on the H100 one f64 kernel template,
 instantiated for each (Lb, Lk) with Lb, Lk <= 4, serves every class pair of
-bases up to d shells such as cc-pVDZ (f-shell pair classes raise on CUDA).
+bases up to d shells such as cc-pVDZ. The pair classes with Lb or Lk of 5
+or 6 (f-shell pairs, up to (ff|ff) at L = 12, where the JAX package falls
+back to XLA f64 past L = 8) take the high-L part, ``csrc/eri_tile_highl.cu``:
+one kernel with L given at run time, its recursion plan and gather read
+from a small device table (``highl_plan``), R in the thread's local memory
+and its sums chunked over alpha and s2. Both parts have the same contract
+and output layout, and each counts its own launches.
 
 With primitive counts (``PrimCounts``: each pair's primitive pairs with
 nonzero E first, and their number), the kernel sums only over real bra
@@ -28,17 +34,17 @@ primitive pairs and writes 0.0 for ket primitive pairs past a pair's count
 (their E2 is zero); the twin gives the same result by masking those ket
 entries, since zero-E bra primitive pairs add exactly zero to its sums.
 
-What bounds it on the H100: the write of its output, once only real
-primitive quartets are computed. The design (notes in the source): the
-kernel is a template on (Lb, Lk), so the R recursion and the (s1, s2)
+What bounds the template part on the H100: the write of its output, once
+only real primitive quartets are computed. The design (notes in the
+source): the kernel is a template on (Lb, Lk), so the R recursion and the (s1, s2)
 gather unroll into constant indices and R stays on chip (registers, or the
 thread's column of shared memory for L >= 5); one thread owns one (tile,
 alpha chunk, t1, ket point) and keeps its sums in registers over the whole
 bra loop, storing them once; Boys runs without a division in any loop
 (``boys_on_card`` runs it alone, to hold against ``boys.boys``).
 
-On CPU tensors ``bra_tiles`` runs the twin; on CUDA tensors it launches the
-kernel or raises.
+On CPU tensors ``bra_tiles`` runs the twin; on CUDA tensors it launches one
+of the two parts or raises.
 """
 
 from __future__ import annotations
@@ -46,20 +52,24 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from qchem_rs_tpu_torch.ops.eri import _r2m_plan
-from qchem_rs_tpu_torch.ops.mcmurchie import nhermite, r_table_components
+from qchem_rs_tpu_torch.ops.eri import _r2_gather, _r2m_plan
+from qchem_rs_tpu_torch.ops.mcmurchie import _r_plan, hermite_components, nhermite, r_table_components
 from qchem_rs_tpu_torch.utils.cuda import CudaKernel, stream_of
 
-#: highest angular momentum Lb (bra pair) or Lk (ket pair) the CUDA kernel
-#: is built for: one template instantiation per (Lb, Lk), every pair class
+#: highest angular momentum Lb (bra pair) or Lk (ket pair) of the template
+#: part, csrc/eri_tile.cu: one instantiation per (Lb, Lk), every pair class
 #: up to (d, d)
 KERNEL_MAX_SIDE = 4
-#: highest order of the kernel's Boys function
-KERNEL_MAX_L = 2 * KERNEL_MAX_SIDE
+#: highest Lb or Lk of the high-L part, csrc/eri_tile_highl.cu, which takes
+#: every class pair with Lb or Lk above KERNEL_MAX_SIDE: up to (f, f)
+HIGHL_MAX_SIDE = 6
+#: highest order of the kernels' Boys function
+KERNEL_MAX_L = 2 * HIGHL_MAX_SIDE
 
 #: translation units of csrc/eri_tile.cu, one per (Lb, Lk), built by
 #: concurrent nvcc processes
@@ -72,7 +82,13 @@ KERNEL = CudaKernel(
     [_c.c_int] * 8 + [_c.c_void_p] * 12,
     parts=BUILD_PARTS,
 )
-#: the kernel's Boys function on its own, for holding it against ``boys``
+#: the high-L part: pair classes with Lb or Lk of 5 or 6, L given at run time
+HIGHL_KERNEL = CudaKernel(
+    "eri_tile_highl.cu",
+    "eri_bra_tiles_highl",
+    [_c.c_int] * 8 + [_c.c_void_p] * 13,
+)
+#: the kernels' Boys function on its own, for holding it against ``boys``
 BOYS_PROBE = CudaKernel(
     "eri_tile.cu",
     "eri_boys",
@@ -143,6 +159,28 @@ def all_prims(N: int, c: int, T: int, device) -> PrimCounts:
         nreal=torch.full((N // T,), c * T, **i32),
         T=T,
     )
+
+
+@lru_cache(maxsize=None)
+def highl_plan(Lb: int, Lk: int) -> np.ndarray:
+    """The high-L part's device table for class pair (Lb, Lk), int32: the
+    packed recursion step of each of the H Hermite entries of L = Lb + Lk
+    (``mcmurchie._r_plan``: bits 0-1 the dimension d, 2-5 the coefficient,
+    6-9 the order t+u+v, 10-18 the index of s - e_d, 19-27 that of
+    s - 2 e_d), then the (S1, S2) gather of ``eri._r2_gather``, then one flag
+    per s2 whose sign is -1."""
+    L = Lb + Lk
+    onehot, idx1, idx2, coef = _r_plan(L)
+    order = np.asarray(hermite_components(L)).sum(axis=1)
+    steps = (onehot.argmax(axis=1) | coef.astype(np.int64) << 2 | order << 6
+             | idx1.astype(np.int64) << 10 | idx2.astype(np.int64) << 19)
+    idx, sign = _r2_gather(Lb, Lk)
+    return np.concatenate([steps, idx.ravel(), (sign < 0)]).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _device_plan(Lb: int, Lk: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(highl_plan(Lb, Lk), device=device)
 
 
 def _tile_index(t: np.ndarray, T: int, device) -> torch.Tensor:
@@ -238,7 +276,8 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
     already on the device as int32 tensors, for a caller that launches the
     same tiles again and again: a copy from host memory makes the host wait
     for the device. CPU tensors take the twin; CUDA tensors launch the
-    kernel.
+    kernel: the template part for Lb, Lk <= 4, the high-L part for the
+    classes with Lb or Lk of 5 or 6.
     """
     _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     dev = E1.device
@@ -246,11 +285,8 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
         return bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if max(Lb, Lk) > KERNEL_MAX_SIDE:
-        raise NotImplementedError(
-            f"the CUDA tile kernel covers pair classes up to Lb, Lk <= {KERNEL_MAX_SIDE}, "
-            f"got ({Lb}, {Lk})"
-        )
+    if max(Lb, Lk) > HIGHL_MAX_SIDE:
+        raise ValueError(f"the CUDA tile kernels take Lb, Lk <= {HIGHL_MAX_SIDE}, got ({Lb}, {Lk})")
     N1, a, A, S1 = E1.shape
     c = p2.shape[1]
     S2 = nhermite(Lk)
@@ -266,20 +302,23 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
         raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
     if ket is None:
         bra, ket = all_prims(N1, a, T1, dev), all_prims(p2.shape[0], c, T2, dev)
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            Lb, Lk, a, c, A, T1, T2, nt,
-            E1.data_ptr(), p1.data_ptr(), P1.data_ptr(), p2.data_ptr(), P2.data_ptr(),
+    ptrs = (E1.data_ptr(), p1.data_ptr(), P1.data_ptr(), p2.data_ptr(), P2.data_ptr(),
             ti_d.data_ptr(), tj_d.data_ptr(), bra.n.data_ptr(), ket.order.data_ptr(),
-            ket.nreal.data_ptr(), out.data_ptr(), stream_of(out),
-        )
+            ket.nreal.data_ptr())
+    with torch.cuda.device(dev):
+        if max(Lb, Lk) <= KERNEL_MAX_SIDE:
+            KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, *ptrs, out.data_ptr(), stream_of(out))
+        else:
+            HIGHL_KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, *ptrs,
+                                _device_plan(Lb, Lk, dev).data_ptr(), out.data_ptr(),
+                                stream_of(out))
     return out
 
 
 def boys_on_card(mmax: int, T: torch.Tensor) -> torch.Tensor:
     """F_0..F_mmax at the points of the CUDA tensor T (1-d float64), by the
-    kernel's own device Boys function: (mmax+1, n), to hold against
-    ``boys.boys``."""
+    kernels' own device Boys function (``csrc/boys.cuh``): (mmax+1, n), to
+    hold against ``boys.boys``."""
     if T.device.type != "cuda" or T.dtype != torch.float64 or T.ndim != 1 or not T.is_contiguous():
         raise ValueError("boys_on_card needs a contiguous 1-d float64 CUDA tensor")
     if not 0 <= mmax <= KERNEL_MAX_L:

@@ -12,6 +12,11 @@ Per class pair, ``build`` hands batches of tiles to kernel 1
 ket side with one batched f64 matmul (``ket_contract``) and writes the
 blocks into V2 by one indexed assignment.
 
+A spherical system's V2 is still Cartesian; ``finish_eri`` and
+``finish_terms`` project it onto the solid harmonics in pair space, one
+class-pair block at a time (``SphericalPairLayout``), so the dense
+Cartesian (n^4) tensor never exists.
+
 Tile sizes are the port's own: a class's pairs are padded to a multiple of
 its tile size min(32, next power of two of its pair count). Padded pairs
 carry E = 0 (contribute exactly zero) and p = 1, P = 0 (finite math).
@@ -23,6 +28,7 @@ counts, so it computes only real primitive quartets.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -33,6 +39,7 @@ from qchem_rs_tpu_torch.ops.eri import PairGroup, build_pair_groups
 from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles, bra_tiles_plain, compact_prims, prim_counts
 from qchem_rs_tpu_torch.ops.fock import schwarz_bounds
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
+from qchem_rs_tpu_torch.ops.spherical import cart_to_sph, nsph
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
 
 #: largest pair-tile edge
@@ -102,6 +109,46 @@ class PairSpaceLayout:
         if (pmap < 0).any():
             raise RuntimeError("AO pair map has holes")
         self.pmap = pmap.reshape(-1)  # (nao^2,)
+
+
+class SphericalPairLayout:
+    """Host bookkeeping of the spherical pair-space matrix V2s (port of
+    ``qchem_rs_tpu/ops/eri_tiled.py::_sph_pair_layout``): per class, its
+    first V2s row and its (2la+1)(2lb+1) components per pair (``bases``),
+    the class's kron(cart_to_sph(la), cart_to_sph(lb)) block (``kmats``,
+    (A_cart, A_sph), the blocks of ``system.sph_T``), and the spherical
+    AO-pair -> V2s-row map ``pmap`` (ns^2,).
+
+    The solid-harmonic projection factorises per class pair: each stored
+    pair transforms on its own with its kron block, so no Cartesian n^4
+    tensor is needed."""
+
+    def __init__(self, system: MolecularSystem, layout: PairSpaceLayout):
+        sph_off, off = {}, 0
+        for sh in system.shells:
+            sph_off[sh.index] = off
+            off += nsph(sh.l)
+        self.ns = ns = off
+        self.bases: list[tuple[int, int]] = []
+        row = 0
+        for g, m in zip(layout.groups, layout.metas):
+            As = nsph(g.la) * nsph(g.lb)
+            self.bases.append((row, As))
+            row += m.npad * As
+        self.Ms = row
+        pmap = np.full((ns, ns), -1, dtype=np.int64)
+        for g, (base_s, As) in zip(layout.groups, self.bases):
+            nA, nB = nsph(g.la), nsph(g.lb)
+            for k in range(g.npairs):
+                ii = sph_off[int(g.i_shell[k])] + np.arange(nA)
+                jj = sph_off[int(g.j_shell[k])] + np.arange(nB)
+                rows = base_s + k * As + (np.arange(nA)[:, None] * nB + np.arange(nB)[None, :])
+                pmap[ii[:, None], jj[None, :]] = rows
+                pmap[jj[None, :], ii[:, None]] = rows
+        if (pmap < 0).any():
+            raise RuntimeError("spherical AO pair map has holes")
+        self.pmap = pmap.reshape(-1)
+        self.kmats = [np.kron(cart_to_sph(g.la), cart_to_sph(g.lb)) for g in layout.groups]
 
 
 def _tile_list(m1, m2, T1, T2, bound1, bound2, threshold, same):
@@ -223,6 +270,9 @@ class TiledEriEngine:
         V2 = eng.build()                 # upper class blocks valid
         terms = eng.finish_terms(V2)     # (n^2, n^2); V2 is mirrored in place
         e4 = eng.finish_eri(eng.build()) # (n, n, n, n) chemists' tensor
+
+    A spherical system's V2 is Cartesian as well; its finish projects it
+    (``v2s_mirrored``) and gives the working-basis results.
     """
 
     def __init__(self, system: MolecularSystem, screening_threshold: float = 0.0, *, device):
@@ -313,16 +363,22 @@ class TiledEriEngine:
             for i1, i2, ti, _ in self._tasks
         )
 
-    def bra_kernel_work(self) -> tuple[float, float]:
+    def bra_kernel_work(self, select=None) -> tuple[float, float]:
         """(bytes, FLOPs) that kernel 1 must move and compute over one
         ``build()``: each class's E, p, P read once plus every output
         written once; ``_quartet_flops`` over the real primitive quartets
-        (nonzero E on both sides) of every executed tile."""
+        (nonzero E on both sides) of every executed tile. ``select(Lb, Lk)``
+        keeps only the class pairs for which it is true (the classes they
+        read are then the only inputs counted)."""
         metas = self.layout.metas
         n = [c.n.cpu().numpy().astype(np.float64) for c in self._counts]
-        nbytes = sum(8.0 * (E.numel() + p.numel() + P.numel()) for E, p, P in self._padded)
+        tasks = [t for t in self._tasks if select is None or select(
+            metas[t[0]].la + metas[t[0]].lb, metas[t[1]].la + metas[t[1]].lb)]
+        read = {i for i1, i2, _, _ in tasks for i in (i1, i2)}
+        nbytes = sum(8.0 * (E.numel() + p.numel() + P.numel())
+                     for i, (E, p, P) in enumerate(self._padded) if i in read)
         flops = 0.0
-        for i1, i2, ti, tj in self._tasks:
+        for i1, i2, ti, tj in tasks:
             m1, m2 = metas[i1], metas[i2]
             Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
             S2 = nhermite(Lk)
@@ -332,15 +388,55 @@ class TiledEriEngine:
             flops += float((rows * cols).sum()) * _quartet_flops(Lb + Lk, nhermite(Lb), S2, m1.A)
         return nbytes, flops
 
+    @functools.cached_property
+    def sph_layout(self) -> SphericalPairLayout:
+        """The spherical pair-space layout, built at first use."""
+        return SphericalPairLayout(self.system, self.layout)
+
+    def v2f_to_sph(self, V2f: torch.Tensor) -> torch.Tensor:
+        """(Ms, Ms) spherical pair matrix from the mirrored Cartesian V2f:
+        one two-sided product with the classes' kron blocks per class-pair
+        block on and above the block diagonal (the rest stays zero; port of
+        ``_v2f_to_sph``)."""
+        sl, metas = self.sph_layout, self.layout.metas
+        K = [torch.as_tensor(k, dtype=V2f.dtype, device=V2f.device) for k in sl.kmats]
+        V2s = torch.zeros((sl.Ms, sl.Ms), dtype=V2f.dtype, device=V2f.device)
+        for i1, m1 in enumerate(metas):
+            r1, S1 = sl.bases[i1]
+            for i2 in range(i1, len(metas)):
+                m2 = metas[i2]
+                r2, S2 = sl.bases[i2]
+                blk = V2f[m1.row_base : m1.row_base + m1.npad * m1.A,
+                          m2.row_base : m2.row_base + m2.npad * m2.A]
+                blk = (blk.reshape(-1, m2.A) @ K[i2]).reshape(m1.npad, m1.A, m2.npad * S2)
+                blk = torch.einsum("pAq,AS->pSq", blk, K[i1])
+                V2s[r1 : r1 + m1.npad * S1, r2 : r2 + m2.npad * S2] = blk.reshape(m1.npad * S1, -1)
+        return V2s
+
+    def v2s_mirrored(self, V2: torch.Tensor) -> torch.Tensor:
+        """The mirrored spherical pair matrix from the build's upper-valid
+        V2 (port of ``_v2s_mirrored``): mirror V2 in place, project, mirror
+        the projection (its diagonal class blocks are symmetric, so the
+        elementwise mirror is exact)."""
+        return mirror_inplace(self.v2f_to_sph(mirror_inplace(V2)))
+
+    def _working_pairs(self, V2: torch.Tensor):
+        """(mirrored pair matrix, AO-pair row map, n) in the system's
+        working basis: the Cartesian V2 mirrored in place, or, for a
+        spherical system, its projection."""
+        if self.system.spherical:
+            sl = self.sph_layout
+            return self.v2s_mirrored(V2), torch.as_tensor(sl.pmap, device=V2.device), sl.ns
+        return mirror_inplace(V2), torch.as_tensor(self.layout.pmap, device=V2.device), self.nao
+
     def finish_eri(self, V2: torch.Tensor) -> torch.Tensor:
-        """(n, n, n, n) chemists' tensor (ij|kl) (port of the Cartesian
-        ``finish_eri``, ``qchem_rs_tpu/ops/eri_tiled.py:1043`` and
+        """(n, n, n, n) chemists' tensor (ij|kl) in the working basis (port
+        of ``finish_eri``, ``qchem_rs_tpu/ops/eri_tiled.py:1043`` and
         ``:1089``): the row gathers of ``finish_terms`` without the
         exchange term, one AO row i at a time. Mirrors V2 in place; peak
-        memory is V2 plus the output."""
-        n = self.nao
-        V2f = mirror_inplace(V2)
-        pmap = torch.as_tensor(self.layout.pmap, device=V2.device)
+        memory is V2 (and, when spherical, its projection) plus the
+        output."""
+        V2f, pmap, n = self._working_pairs(V2)
         pmap2 = pmap.reshape(n, n)
         e4 = torch.empty((n * n, n * n), dtype=V2.dtype, device=V2.device)
         for i in range(n):
@@ -349,13 +445,12 @@ class TiledEriEngine:
 
     def finish_terms(self, V2: torch.Tensor) -> torch.Tensor:
         """(n^2, n^2) operator terms[ij, kl] = (ij|kl) - 1/2 (ik|jl)
-        (rhf.rs:58-62), one AO row i at a time: two gathers from the
-        mirrored V2 give (ij|kl) for all j, k, l, and the exchange term is
-        its j <-> k transpose. Mirrors V2 in place; peak memory is V2 plus
+        (rhf.rs:58-62) in the working basis, one AO row i at a time: two
+        gathers from the mirrored pair matrix give (ij|kl) for all j, k, l,
+        and the exchange term is its j <-> k transpose. Mirrors V2 in
+        place; peak memory is V2 (and, when spherical, its projection) plus
         the output."""
-        n = self.nao
-        V2f = mirror_inplace(V2)
-        pmap = torch.as_tensor(self.layout.pmap, device=V2.device)
+        V2f, pmap, n = self._working_pairs(V2)
         pmap2 = pmap.reshape(n, n)
         terms = torch.empty((n * n, n * n), dtype=V2.dtype, device=V2.device)
         for i in range(n):

@@ -21,8 +21,13 @@ memory (half of the host's on the CPU), or ``QCHEM_TORCH_PAIR_BUDGET``
 bytes when that is set. Naphthalene/cc-pVDZ needs 8.46 GB, so it runs
 with W on an 80 GB card; ``lean=True`` forces lean mode.
 
+A spherical system keeps the Cartesian pair matrices: ``jk`` maps its
+density to the Cartesian basis and J and K back, two (nsph, ncart)
+sandwiches (``qchem_rs_tpu/ops/fock_pair.py:344-358``), so kernel 2 still
+reads the Cartesian V2f.
+
 Left out: the TPU's (hi, lo)-f32 split storage and its three programs,
-``exchange_lean_split``, the spherical basis and the sharded builder.
+``exchange_lean_split`` and the sharded builder.
 """
 
 from __future__ import annotations
@@ -181,5 +186,12 @@ class PairSpaceFockBuilder:
         return Jp[self._pmap].reshape(nao, nao), K
 
     def jk(self, D: torch.Tensor):
-        """J and K of D, building the pair matrices at first use."""
-        return self.jk_cart(D, *self.prepare())
+        """J and K of D in the system's working basis, building the pair
+        matrices at first use; a spherical D goes through the Cartesian
+        build as ``sph_T D sph_T^T``, and J and K come back as
+        ``sph_T^T X sph_T``."""
+        if not self.system.spherical:
+            return self.jk_cart(D, *self.prepare())
+        T = torch.as_tensor(self.system.sph_T, dtype=D.dtype, device=D.device)
+        J, K = self.jk_cart(T @ D @ T.T, *self.prepare())
+        return T.T @ J @ T, T.T @ K @ T

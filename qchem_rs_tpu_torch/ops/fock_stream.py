@@ -29,6 +29,10 @@ V2, the pair-space formulas of ``ops/fock_pair.py``.
   symmetric), so K = K1 + K1^T at the end. The JAX package's one-hot
   products were a way around slow TPU scatters and are not copied.
 
+A spherical system's densities go through the Cartesian pass as
+``sph_T D sph_T^T`` and J and K come back as ``sph_T^T X sph_T``
+(``jk_stack``, ``qchem_rs_tpu/ops/fock_stream.py:313-320``).
+
 Left out: the JAX package's ``SEG_UNITS`` segments and sentinel tiles (they
 keep each TPU program under its watchdog), the df/pallas kernel switch and
 the mesh branch.
@@ -50,8 +54,8 @@ class StreamingFockBuilder:
     digest them at once.
 
         builder = StreamingFockBuilder(system, 1e-12, device="cuda")
-        J, K = builder.jk(D)                 # D (nao, nao)
-        Js, Ks = builder.jk_stack_cart(Ds)   # Ds (nd, nao, nao)
+        J, K = builder.jk(D)                 # D (n, n), working basis
+        Js, Ks = builder.jk_stack(Ds)        # Ds (nd, n, n)
     """
 
     def __init__(self, system: MolecularSystem, threshold: float = 1e-12, *, device,
@@ -155,10 +159,17 @@ class StreamingFockBuilder:
         J = Jp[self._pmap].T.reshape(nd, nao, nao)
         return J, K1 + K1.transpose(1, 2)
 
-    def jk_cart(self, D: torch.Tensor):
-        """J and K (nao, nao) of one symmetric density (nao, nao)."""
-        J, K = self.jk_stack_cart(D[None])
-        return J[0], K[0]
+    def jk_stack(self, D: torch.Tensor):
+        """J and K stacks (nd, n, n) of a stack of symmetric densities in
+        the system's working basis: spherical densities are mapped to the
+        Cartesian basis and J and K back, around one Cartesian pass."""
+        if not self.system.spherical:
+            return self.jk_stack_cart(D)
+        T = torch.as_tensor(self.system.sph_T, dtype=D.dtype, device=D.device)
+        J, K = self.jk_stack_cart(T @ D @ T.T)
+        return T.T @ J @ T, T.T @ K @ T
 
-    #: the port's AOs are Cartesian, so the working basis is this one
-    jk = jk_cart
+    def jk(self, D: torch.Tensor):
+        """J and K (n, n) of one symmetric density in the working basis."""
+        J, K = self.jk_stack(D[None])
+        return J[0], K[0]

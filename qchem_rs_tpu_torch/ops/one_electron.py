@@ -1,5 +1,7 @@
 """One-electron integrals: overlap S, kinetic T, nuclear attraction V (port
-of ``qchem_rs_tpu/ops/one_electron.py:130-160``).
+of ``qchem_rs_tpu/ops/one_electron.py:130-160``), in the system's working
+basis: a spherical system's Cartesian matrices are projected as
+``sph_T^T X sph_T`` (``qchem_rs_tpu/ops/one_electron.py:120-122``).
 
 Shell pairs are batched per (la, lb) class with padded primitive axes; each
 class is one batched tensor computation. Padded primitives carry
@@ -107,11 +109,15 @@ def _assemble(system: MolecularSystem, class_fn, device) -> torch.Tensor:
             cols = cb.ao_offsets[ib][:, None, None] + np.arange(ncart(lb))[None, None, :]
             out[torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)] = block
     norms = _t(system.ao_norms, device)
-    return out * norms[:, None] * norms[None, :]
+    out = out * norms[:, None] * norms[None, :]
+    if system.spherical:
+        T = _t(system.sph_T, device)
+        out = T.T @ out @ T
+    return out
 
 
 def overlap(system: MolecularSystem, device) -> torch.Tensor:
-    """Full AO overlap matrix S (nao, nao)."""
+    """Full AO overlap matrix S (nao, nao), nao of the working basis."""
     return _assemble(
         system,
         lambda la, lb, a, b, cc, A, B, AB, pos: _overlap_class(la, lb, a, b, cc, AB),

@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file exposes plain C functions that launch its kernels
 on a given stream and return the ``cudaError_t`` of the launch. At first
 use it is compiled with ``nvcc`` into a shared library under
-``qchem_rs_tpu_torch/_build/`` (keyed by a hash of the source and flags, so
-an edited source rebuilds) and loaded with ``ctypes``. A source built in
-``parts`` is compiled as that many translation units (``-DKERNEL_PART=k``,
-each instantiating its share of the kernel's templates), then linked.
+``qchem_rs_tpu_torch/_build/`` (keyed by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds) and loaded with ``ctypes``. A source built in ``parts`` is
+compiled as that many translation units (``-DKERNEL_PART=k``, each
+instantiating its share of the kernel's templates), then linked.
 ``load_all`` compiles every source's units together, one nvcc process per
 CPU core at a time.
 Nothing is compiled or loaded at import; a failed build raises.
@@ -66,7 +67,8 @@ class _Build:
     def __init__(self, source: str, parts: int):
         src = CSRC / source
         flags = " ".join(NVCC_FLAGS) + f" parts={parts}"
-        key = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        key = hashlib.sha256(src.read_bytes() + headers + flags.encode()).hexdigest()[:16]
         self.src = src
         self.lib = BUILD_DIR / f"{src.stem}-{key}.so"
         self.log = self.lib.with_suffix(".ptxas.txt")

@@ -23,10 +23,14 @@ def to_tensor(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
-def system_from_numpy(ordinals: np.ndarray, positions: np.ndarray, basis: BasisSet) -> MolecularSystem:
+def system_from_numpy(ordinals: np.ndarray, positions: np.ndarray, basis: BasisSet,
+                      spherical: bool = False) -> MolecularSystem:
     """The port's system for atoms given as ordinals (natom,) and positions
-    (natom, 3) in Bohr."""
-    return MolecularSystem.from_arrays(np.asarray(ordinals), np.asarray(positions, dtype=np.float64), basis)
+    (natom, 3) in Bohr, Cartesian or spherical as the JAX system's
+    ``spherical`` flag says (its densities then live in the spherical
+    basis, and ``density_guess`` carries them over as they are)."""
+    return MolecularSystem.from_arrays(np.asarray(ordinals), np.asarray(positions, dtype=np.float64),
+                                       basis, spherical=spherical)
 
 
 def pair_group_from_numpy(la: int, lb: int, i_shell, j_shell, ao_i, ao_j, E, p, P, device) -> PairGroup:
@@ -44,7 +48,8 @@ def pair_group_from_numpy(la: int, lb: int, i_shell, j_shell, ao_i, ao_j, E, p, 
 def density_guess(D, nao: int, nspin: int, device) -> torch.Tensor:
     """A starting density from numpy: (nao, nao) for RHF (``nspin`` 1) or
     the (2, nao, nao) spin stack for UHF (``nspin`` 2), as the JAX package's
-    entry points take it, as a float64 tensor on ``device``."""
+    entry points take it, as a float64 tensor on ``device``; ``nao`` is the
+    size of the working basis (spherical for a spherical system)."""
     shape = (nao, nao) if nspin == 1 else (nspin, nao, nao)
     D = np.asarray(D, dtype=np.float64)
     if D.shape != shape:

@@ -6,7 +6,10 @@ Molecule JSON format matches ``data/mol/*.json``: a list of
 in Bohr. Shells are grouped into **classes by angular momentum l**, each
 class a set of flat arrays padded to the class's max contraction degree, so
 every integral class (la, lb[, lc, ld]) is one batched tensor computation.
-numpy only; the spherical (5d/7f) transform is not ported yet.
+numpy only. ``spherical=True`` adds the (nao_cart, nao_sph) transform
+``sph_T`` (``ops/spherical.py``): the integrals are still computed over
+Cartesian Gaussians and projected onto the 2l+1 solid harmonics of each
+shell, and ``n_basis()`` counts the working (spherical) basis.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from qchem_rs_tpu_torch.ops.angular import component_norms, double_factorial, ncart
+from qchem_rs_tpu_torch.ops.spherical import nsph, system_transform
 from qchem_rs_tpu_torch.utils.basis import BasisSet
 
 
@@ -86,14 +90,15 @@ def _normalize_coefficients(alpha: np.ndarray, coef: np.ndarray, l: int) -> np.n
 
 
 class MolecularSystem:
-    """Atoms + basis expanded into shells and shell classes (Cartesian AOs)."""
+    """Atoms + basis expanded into shells and shell classes.
+
+    ``spherical=True`` projects every integral onto real solid harmonics
+    (5d/7f); the default is Cartesian (6d/10f)."""
 
     def __init__(self, atoms: list[Atom], basis: BasisSet, spherical: bool = False):
-        if spherical:
-            raise NotImplementedError("spherical AOs are not ported yet")
         self.atoms = atoms
         self.basis = basis
-        self.spherical = False
+        self.spherical = bool(spherical)
 
         shells: list[Shell] = []
         ao = 0
@@ -155,6 +160,9 @@ class MolecularSystem:
         self.charges = np.array([a.ordinal for a in atoms], dtype=np.float64)
         self.positions = np.array([a.position for a in atoms], dtype=np.float64)
 
+        #: (nao_cart, nao_sph) block-diagonal transform, None when Cartesian
+        self.sph_T = system_transform(self) if self.spherical else None
+
     # --- constructors -----------------------------------------------------
 
     @classmethod
@@ -182,11 +190,21 @@ class MolecularSystem:
     # --- reference API parity --------------------------------------------
 
     def n_basis(self) -> int:
-        """Number of (Cartesian) AO basis functions — molint's n_basis()."""
-        return self._n_basis
+        """Number of AOs of the working basis — molint's n_basis(): the
+        spherical count for a spherical system, else the Cartesian one."""
+        return self.sph_T.shape[1] if self.spherical else self._n_basis
 
     def n_basis_cart(self) -> int:
+        """Number of Cartesian AOs, the basis the integrals are computed in."""
         return self._n_basis
+
+    def ao_atom_indices(self) -> np.ndarray:
+        """Atom index of every working-basis AO: 2l+1 per shell in shell
+        order for a spherical system (``system_transform``'s block layout),
+        ncart(l) for a Cartesian one."""
+        width = nsph if self.spherical else ncart
+        return np.asarray([s.atom_index for s in self.shells for _ in range(width(s.l))],
+                          dtype=np.int64)
 
     def n_electrons(self, charge: int = 0) -> int:
         return int(sum(a.ordinal for a in self.atoms)) - charge
@@ -204,5 +222,6 @@ class MolecularSystem:
     def __repr__(self) -> str:
         return (
             f"MolecularSystem({len(self.atoms)} atoms, {len(self.shells)} shells, "
-            f"{self._n_basis} AOs, basis={self.basis.name!r})"
+            f"{self.n_basis()} {'spherical' if self.spherical else 'Cartesian'} AOs, "
+            f"basis={self.basis.name!r})"
         )

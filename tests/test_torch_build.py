@@ -53,6 +53,20 @@ def test_build_plans_one_nvcc_job_per_part(tmp_path, monkeypatch, parts):
     assert cuda._Build("eri_tile.cu", parts + 1).lib != b.lib
 
 
+def test_build_key_follows_the_shared_headers(tmp_path, monkeypatch):
+    # both parts of kernel 1 include csrc/boys.cuh: editing it must rebuild
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "common.cuh"\n')
+    (src / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda, "CSRC", src)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    first = cuda._Build("k.cu", 1).lib
+    assert cuda._Build("k.cu", 1).lib == first
+    (src / "common.cuh").write_text("// two\n")
+    assert cuda._Build("k.cu", 1).lib != first
+
+
 def test_cached_build_runs_nothing(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path)
     first = cuda._Build("fock_matvec.cu", 1)

@@ -81,6 +81,63 @@ def test_eri_kernel_ragged_counts_match_twin(cuda, Lb, Lk):
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
 
 
+#: the class pairs of kernel 1's high-L part: Lb or Lk of 5 or 6
+HIGHL_CLASSES = [(lb, lk) for lb in range(7) for lk in range(7) if max(lb, lk) > 4]
+
+
+def _ragged_classes(rng, Lb, Lk, a, c, T, device):
+    """Bra and ket classes of two tile blocks each with zero-E primitive
+    pairs interleaved (counts 1..a, one bra pair all zero), compacted and
+    counted as the engine does."""
+    A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+    E1 = rng.standard_normal((2 * T, a, A, nhermite(Lb)))
+    E2 = rng.standard_normal((2 * T, c, 1, 1))
+    for E, n in ((E1, a), (E2, c)):
+        for i in range(2 * T):
+            E[i, rng.permutation(n)[: n - rng.integers(1, n + 1)]] = 0.0
+    E1[-1] = 0.0
+    bra = eri_kernel.compact_prims(*(torch.tensor(x, device=device) for x in (
+        E1, rng.uniform(0.3, 8.0, (2 * T, a)), rng.standard_normal((2 * T, a, 3)) * 1.5)))
+    E2, p2, P2 = eri_kernel.compact_prims(*(torch.tensor(x, device=device) for x in (
+        E2, rng.uniform(0.3, 8.0, (2 * T, c)), rng.standard_normal((2 * T, c, 3)) * 1.5)))
+    counts = eri_kernel.prim_counts(bra[0], T), eri_kernel.prim_counts(E2, T)
+    return (*bra, p2, P2), counts
+
+
+@pytest.mark.parametrize("Lb,Lk", HIGHL_CLASSES)
+def test_highl_kernel_ragged_counts_match_twin(cuda, Lb, Lk):
+    # the f-shell pair classes go to the high-L part, which holds the same
+    # count contract as the template part
+    rng = np.random.default_rng(300 + Lb * 7 + Lk)
+    prims = [3, 3, 2, 2, 1, 2, 1]
+    args, counts = _ragged_classes(rng, Lb, Lk, prims[Lb], prims[Lk], 8, cuda)
+    ti, tj = np.array([0, 8, 8]), np.array([8, 0, 8])
+    before = eri_kernel.HIGHL_KERNEL.launches, eri_kernel.KERNEL.launches
+    out = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, 8, 8, *counts)
+    ref = eri_kernel.bra_tiles_plain(Lb, Lk, *args, ti, tj, 8, 8, *counts)
+    torch.cuda.synchronize()
+    assert (eri_kernel.HIGHL_KERNEL.launches, eri_kernel.KERNEL.launches) == (before[0] + 1, before[1])
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+def test_cuda_dispatch_serves_every_class_up_to_f_pairs(cuda):
+    # no class pair up to (6, 6) raises on CUDA: Lb, Lk <= 4 take the
+    # template part, the rest the high-L part; nothing falls back to the twin
+    rng = np.random.default_rng(11)
+    for Lb in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+        for Lk in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+            args, counts = _ragged_classes(rng, Lb, Lk, 1, 1, 4, cuda)
+            part = eri_kernel.KERNEL if max(Lb, Lk) <= 4 else eri_kernel.HIGHL_KERNEL
+            before = part.launches
+            out = eri_kernel.bra_tiles(Lb, Lk, *args, np.array([0]), np.array([4]), 4, 4, *counts)
+            torch.cuda.synchronize()
+            assert part.launches == before + 1
+            assert bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="Lb, Lk <= 6"):
+        args, counts = _ragged_classes(rng, 7, 0, 1, 1, 4, cuda)
+        eri_kernel.bra_tiles(7, 0, *args, np.array([0]), np.array([0]), 4, 4, *counts)
+
+
 def test_kernel_boys_matches_boys(cuda):
     from qchem_rs_tpu_torch.ops.boys import boys
 

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from qchem_rs_tpu.ops.eri_tiled import TiledEriEngine as JaxEngine
+from qchem_rs_tpu.ops.fock_pair import PairSpaceFockBuilder as JaxPairBuilder
 from qchem_rs_tpu.ops.eri_tiled import _tile_vals as _jax_tile_vals_eager
 from qchem_rs_tpu.utils.basis import BasisSet as JaxBasisSet
 from qchem_rs_tpu.utils.system import MolecularSystem as JaxSystem
@@ -65,6 +66,12 @@ def _random_tile(Lb, Lk, a, c, T1, T2, seed):
         (4, 4, 1, 1, 8, 8),
         (1, 2, 4, 2, 8, 8),
         (4, 0, 1, 9, 8, 16),
+        # f-shell pair classes (Lb or Lk of 5 or 6), the high-L part's
+        (5, 0, 1, 6, 4, 8),
+        (5, 3, 1, 2, 4, 4),
+        (6, 2, 1, 2, 4, 4),
+        (3, 6, 2, 1, 4, 4),
+        (6, 6, 1, 1, 2, 2),
     ],
 )
 def test_tile_twin_matches_jax_tile_vals(Lb, Lk, a, c, T1, T2):
@@ -159,6 +166,65 @@ def water_631gs(water_631gs_port):
         JaxBasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")),
     )
     return JaxEngine(jax_sys, 1e-12), water_631gs_port
+
+
+@pytest.fixture(scope="module")
+def water_631gs_sph(water_631gs):
+    """Water/6-31G* in spherical AOs: the JAX engine's (ij|kl) and terms
+    (screened at 1e-12, as the Cartesian fixture, whose integral programs
+    it shares), the JAX pair builder's J and K of two random symmetric
+    densities (its ``jk_sph`` sandwich; the JAX direct builder computes the
+    same, tests/test_fock_stream.py), and the port's system."""
+    jax_sys = JaxSystem.load(
+        os.path.join(DATA, "mol", "water.json"),
+        JaxBasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")), spherical=True,
+    )
+    eng = JaxEngine(jax_sys, 1e-12)
+    e4 = np.asarray(eng.finish_eri(eng.build()))
+    terms = np.asarray(eng.finish_terms(eng.build()))
+    D = np.random.default_rng(21).standard_normal((2, 18, 18))
+    D = D + D.transpose(0, 2, 1)
+    builder = JaxPairBuilder(jax_sys, engine=eng, lean=False)
+    JK = [builder.jk(jnp.asarray(d)) for d in D]
+    port_sys = MolecularSystem.load(
+        os.path.join(DATA, "mol", "water.json"),
+        BasisSet.load(os.path.join(DATA, "basis", "6-31G_st.json")), spherical=True,
+    )
+    return port_sys, e4, terms, D, [tuple(np.asarray(x) for x in jk) for jk in JK]
+
+
+def _rel(out, ref):
+    return float(np.max(np.abs(np.asarray(out) - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+def test_spherical_finish_eri_and_terms_match_jax(water_631gs_sph):
+    port_sys, e4_ref, terms_ref, _, _ = water_631gs_sph
+    eng = TiledEriEngine(port_sys, 1e-12, device="cpu")
+    e4 = eng.finish_eri(eng.build()).numpy()
+    terms = eng.finish_terms(eng.build()).numpy()
+    assert e4.shape == e4_ref.shape == (18,) * 4
+    assert terms.shape == terms_ref.shape == (18 * 18,) * 2
+    assert _rel(e4, e4_ref) <= 1e-12
+    assert _rel(terms, terms_ref) <= 1e-12
+    # symmetric to rounding, as kernel 2's half read needs
+    assert np.abs(terms - terms.T).max() <= 1e-15 * np.abs(terms).max()
+
+
+@pytest.mark.parametrize("builder", ["pair", "pair-lean", "direct"])
+def test_spherical_jk_matches_jax(water_631gs_sph, builder):
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    port_sys, _, _, D, JK = water_631gs_sph
+    if builder == "direct":
+        J, K = StreamingFockBuilder(port_sys, 1e-12, device="cpu").jk_stack(torch.tensor(D))
+    else:
+        b = PairSpaceFockBuilder(port_sys, 1e-12, device="cpu", lean=builder == "pair-lean")
+        J, K = (torch.stack(x) for x in zip(*(b.jk(torch.tensor(d)) for d in D)))
+    assert J.shape == K.shape == (2, 18, 18)
+    for s in range(2):
+        assert _rel(J[s], JK[s][0]) < 1e-11
+        assert _rel(K[s], JK[s][1]) < 1e-11
 
 
 def test_pair_groups_and_bounds_match_jax(water_631gs):
@@ -358,15 +424,15 @@ def _ragged_class(L, n, T, rng):
         E, rng.uniform(0.3, 8.0, (2 * T, n)), rng.standard_normal((2 * T, n, 3)) * 1.5)]
 
 
-@pytest.mark.parametrize("Lk", range(eri_kernel.KERNEL_MAX_SIDE + 1))
-@pytest.mark.parametrize("Lb", range(eri_kernel.KERNEL_MAX_SIDE + 1))
+@pytest.mark.parametrize("Lk", range(eri_kernel.HIGHL_MAX_SIDE + 1))
+@pytest.mark.parametrize("Lb", range(eri_kernel.HIGHL_MAX_SIDE + 1))
 def test_twin_with_ragged_counts_matches_original_order(Lb, Lk):
-    # kernel 1's count contract on the CPU, for every (Lb, Lk) the kernel is
-    # built for: after compaction, bra_tiles with counts writes exact zeros
-    # past each ket pair's count, and the contracted integrals equal those
-    # of the original primitive order
+    # kernel 1's count contract on the CPU, for every (Lb, Lk) either part
+    # of the kernel takes: after compaction, bra_tiles with counts writes
+    # exact zeros past each ket pair's count, and the contracted integrals
+    # equal those of the original primitive order
     rng = np.random.default_rng(200 + 5 * Lb + Lk)
-    T, sizes = 4, [5, 4, 3, 2, 2]
+    T, sizes = 4, [5, 4, 3, 2, 2, 2, 1]
     E1, p1, P1 = _ragged_class(Lb, sizes[Lb], T, rng)
     E2, p2, P2 = _ragged_class(Lk, sizes[Lk], T, rng)
     ti, tj = np.array([0, T, T]), np.array([T, 0, T])
@@ -382,3 +448,74 @@ def test_twin_with_ragged_counts_matches_original_order(Lb, Lk):
     assert bool((per_prim[past] == 0).all())
     out = ket_contract(out, ket[0], tj, T)
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+@pytest.mark.parametrize("Lb,Lk", [(5, 0), (0, 5), (5, 3), (4, 6), (6, 6)])
+def test_highl_plan_packs_the_recursion_and_gather(Lb, Lk):
+    # the high-L part's device table, unpacked, is mcmurchie._r_plan's
+    # recursion with each entry's order, then eri._r2_gather's indices and
+    # signs
+    from qchem_rs_tpu_torch.ops.eri import _r2_gather
+    from qchem_rs_tpu_torch.ops.mcmurchie import _r_plan, hermite_components
+
+    L, S1, S2 = Lb + Lk, nhermite(Lb), nhermite(Lk)
+    plan = eri_kernel.highl_plan(Lb, Lk)
+    H = nhermite(L)
+    assert plan.dtype == np.int32 and plan.shape == (H + S1 * S2 + S2,)
+    steps = plan[:H].astype(np.int64)
+    onehot, idx1, idx2, coef = _r_plan(L)
+    np.testing.assert_array_equal(steps[1:] & 3, onehot[1:].argmax(axis=1))
+    np.testing.assert_array_equal((steps >> 2) & 15, coef)
+    np.testing.assert_array_equal((steps >> 6) & 15, np.sum(hermite_components(L), axis=1))
+    np.testing.assert_array_equal((steps >> 10) & 511, idx1)
+    np.testing.assert_array_equal((steps >> 19) & 511, idx2)
+    assert ((steps >> 28) == 0).all()
+    idx, sign = _r2_gather(Lb, Lk)
+    np.testing.assert_array_equal(plan[H:H + S1 * S2].reshape(S1, S2), idx)
+    np.testing.assert_array_equal(plan[H + S1 * S2:], sign < 0)
+
+
+def test_bra_kernel_work_of_a_subset_of_class_pairs(water_631gs_port):
+    # the work of a subset is that of its class pairs alone: their outputs
+    # and quartets, and only the classes they read
+    eng = water_631gs_port
+    total = eng.bra_kernel_work()
+    d_pairs = eng.bra_kernel_work(lambda Lb, Lk: max(Lb, Lk) >= 2)
+    rest = eng.bra_kernel_work(lambda Lb, Lk: max(Lb, Lk) < 2)
+    assert abs(d_pairs[1] + rest[1] - total[1]) <= 1e-12 * total[1]
+    inputs = sum(8.0 * (E.numel() + p.numel() + P.numel()) for E, p, P in eng._padded)
+    assert d_pairs[0] + rest[0] > total[0] > inputs  # both subsets read some classes
+    assert eng.bra_kernel_work(lambda Lb, Lk: False) == (0.0, 0.0)
+    assert 0 < d_pairs[1] < total[1]
+
+
+def _tiny_f_systems():
+    """Two atoms with one s and one f shell each (22 Cartesian AOs): the
+    smallest whole system whose ERIs reach (ff|ff), L = 12, in both
+    packages."""
+    from qchem_rs_tpu.utils.basis import ShellSpec as JaxShellSpec
+    from qchem_rs_tpu.utils.system import Atom as JaxAtom
+    from qchem_rs_tpu_torch.utils.basis import ShellSpec
+    from qchem_rs_tpu_torch.utils.system import Atom
+
+    specs = [(0, [3.0, 0.6], [0.4, 0.7]), (3, [1.1], [1.0])]
+    pos = [np.array([0.0, 0.1, -0.2]), np.array([1.1, -0.3, 0.9])]
+    jb = JaxBasisSet("tiny-f", {8: [JaxShellSpec(l=l, exponents=np.array(e), coefficients=np.array(c))
+                                    for l, e, c in specs]})
+    pb = BasisSet("tiny-f", {8: [ShellSpec(l=l, exponents=np.array(e), coefficients=np.array(c))
+                                 for l, e, c in specs]})
+    return JaxSystem([JaxAtom(8, x) for x in pos], jb), MolecularSystem([Atom(8, x) for x in pos], pb)
+
+
+def test_f_shell_eri_matches_jax():
+    # every class pair up to (ff|ff) through the twin and the port's pair
+    # space against the JAX engine's (its XLA f64 path beyond L = 8);
+    # about 10 s of JAX compiling on one core
+    jax_sys, port_sys = _tiny_f_systems()
+    jeng = JaxEngine(jax_sys, 0.0)
+    ref = np.asarray(jeng.finish_eri(jeng.build()))
+    eng = TiledEriEngine(port_sys, 0.0, device="cpu")
+    assert max(m.la + m.lb for m in eng.layout.metas) == 6
+    out = eng.finish_eri(eng.build()).numpy()
+    assert out.shape == ref.shape == (22,) * 4
+    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-12

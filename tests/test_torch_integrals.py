@@ -128,3 +128,18 @@ def test_one_electron_matches_jax(water_ccpvdz, name):
     out = getattr(port_one, name)(port_sys, "cpu").numpy()
     assert out.shape == ref.shape == (25, 25)
     assert np.max(np.abs(out - ref)) <= 1e-12
+
+
+@pytest.mark.parametrize("name", ["overlap", "kinetic", "nuclear"])
+def test_spherical_one_electron_matches_jax(water_ccpvdz, name):
+    # the same water/cc-pVDZ in spherical AOs (24): the JAX package projects
+    # its Cartesian matrices as sph_T^T X sph_T, with the class programs the
+    # Cartesian test compiled
+    jax_sys, port_sys = water_ccpvdz
+    jax_sph = JaxSystem(jax_sys.atoms, jax_sys.basis, spherical=True)
+    port_sph = system_from_numpy(port_sys.charges.astype(int), port_sys.positions, port_sys.basis,
+                                 spherical=True)
+    ref = np.asarray(getattr(jax_one, name)(jax_sph))
+    out = getattr(port_one, name)(port_sph, "cpu").numpy()
+    assert out.shape == ref.shape == (24, 24)
+    assert np.max(np.abs(out - ref)) <= 1e-12

@@ -68,6 +68,33 @@ def test_atomic_density_matches_jax(jax_cache, basis, Z):
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-8)
 
 
+@pytest.mark.parametrize("Z", ELEMENTS)
+def test_spherical_atomic_density_matches_jax(jax_cache, monkeypatch, Z):
+    # cc-pVDZ in spherical AOs (5d): the JAX package solves the atom from
+    # its Cartesian integrals projected with the atom's transform, with the
+    # programs that its Cartesian cc-pVDZ atoms compiled
+    jax_cache[1]("cc-pVDZ")
+    monkeypatch.setenv("QCHEM_SAD_CACHE", str(jax_cache[0]))
+    jbasis = JaxBasisSet.load(_basis_path("cc-pVDZ"))
+    ref = jax_sad.compute_atomic_density(jbasis, Z, True)
+    out = sad.compute_atomic_density(BasisSet.load(_basis_path("cc-pVDZ")), Z, spherical=True)
+    assert out.shape == ref.shape == ((5, 5) if Z == 1 else (14, 14))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-8)
+
+
+def test_spherical_sad_guess_matches_jax(jax_cache, tmp_path, monkeypatch):
+    jax_cache[1]("cc-pVDZ")
+    path = os.path.join(DATA, "mol", "water.json")
+    monkeypatch.setenv("QCHEM_SAD_CACHE", str(tmp_path / "jax"))
+    monkeypatch.setenv(sad.CACHE_ENV, str(tmp_path / "port"))
+    jsys = JaxSystem.load(path, JaxBasisSet.load(_basis_path("cc-pVDZ")), spherical=True)
+    ref = jax_sad.sad_guess(jsys, 0)
+    out = sad.sad_guess(MolecularSystem.load(path, BasisSet.load(_basis_path("cc-pVDZ")),
+                                             spherical=True))
+    assert out.shape == ref.shape == (24, 24)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-8)
+
+
 @pytest.mark.parametrize("charge", [0, 1])
 def test_sad_guess_matches_jax(jax_cache, tmp_path, monkeypatch, charge):
     path = os.path.join(DATA, "mol", "water.json")
