@@ -12,9 +12,11 @@ nvcc process started together; kernel 1 in its two parts, the template
 time and ptxas's registers, stack frame and spills for every
 instantiation; holds each kernel against its plain PyTorch twin on the
 card (kernel 1 for all 49 (Lb, Lk) <= (6, 6) with ragged primitive counts,
-its Boys function F_0..F_12 against ``boys``, kernel 2 at m = 150, 14400
-and 14401); runs the port's in-core RHF on water/cc-pVDZ, Cartesian and
-spherical, and on
+and its high-L part in all 24 of its (Lb, Lk) at the (xx|ff) shapes of
+ferrocene: ket tiles of one pair, bra tiles of 16, empty bra rows and the
+bra loop split over blocks, two launches bit-identical; its Boys function
+F_0..F_12 against ``boys``, kernel 2 at m = 150, 14400 and 14401); runs
+the port's in-core RHF on water/cc-pVDZ, Cartesian and spherical, and on
 benzene/cc-pVDZ (the headline configuration: diag_rms 1e-8), checks the
 energies against their anchors, shows that the benzene run went through
 both kernels, and times each kernel against its twin, its bound and the
@@ -28,7 +30,10 @@ on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Then
 every basis: spherical naphthalene/cc-pVDZ (SAD) and UHF OH/6-31G*
 (spherical) in the three modes; ferrocene/6-31G* (Cartesian, f shells on
 Fe, SAD) in the three modes, which runs the high-L part, timed on the
-build's f-shell class pairs; and the Zn atom in 6-31G* on the card against
+build's f-shell class pairs (CUDA events around the calls, as every
+kernel is timed, and its kernels' device time from torch.profiler, in all
+and by class pair beside each class's own bound); and the Zn atom in
+6-31G* on the card against
 the port on the CPU. Every phase fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
@@ -97,6 +102,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, names: tuple) -> float:
+    """Mean device milliseconds per ``fn()`` call of the kernels whose names
+    hold one of ``names``: the summed durations of their device events under
+    torch.profiler over ``reps`` calls, after one warm-up call (host time
+    between the launches does not count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(n in e.name for n in names)]
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    fail(f"three traces in a row held no device event of {names}")
+
+
 def print_ptxas(kernel) -> None:
     """Registers, stack frame and spills of every function in a build's
     ptxas report, and the wall time of each nvcc process."""
@@ -118,10 +145,11 @@ def print_ptxas(kernel) -> None:
                   flush=True)
 
 
-def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: int, T2: int):
+def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: int, T2: int,
+                 zero_rows: int = 1):
     """Random bra and ket classes of two tile blocks each, with zero-E
-    primitive pairs interleaved (counts 1..a, one bra pair all zero),
-    compacted as the engine compacts them, on the card."""
+    primitive pairs interleaved (counts 1..a, the last ``zero_rows`` bra
+    pairs all zero), compacted as the engine compacts them, on the card."""
     from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 
     N1, N2 = 2 * T1, 2 * T2
@@ -131,7 +159,7 @@ def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: 
         for i in range(E.shape[0]):
             keep = rng.integers(1, n + 1)
             E[i, rng.permutation(n)[: n - keep]] = 0.0
-    E1[-1] = 0.0
+    E1[N1 - zero_rows:] = 0.0
     host1 = (E1, rng.uniform(0.3, 8.0, (N1, a)), rng.standard_normal((N1, a, 3)) * 1.5)
     host2 = (E2, rng.uniform(0.3, 8.0, (N2, c)), rng.standard_normal((N2, c, 3)) * 1.5)
     E1, p1, P1 = eri_kernel.compact_prims(*(torch.tensor(x, device="cuda") for x in host1))
@@ -168,6 +196,42 @@ def check_kernel1(eri_kernel, ncart) -> tuple[float, float]:
                 fail(f"kernel 1 disagrees with its twin at Lb={Lb} Lk={Lk}: {rel:.3e}")
             worst[part] = max(worst[part], err)
     return worst[eri_kernel.KERNEL], worst[eri_kernel.HIGHL_KERNEL]
+
+
+def check_highl_shapes(eri_kernel, ncart) -> float:
+    """The high-L part in every high-L (Lb, Lk) at the shapes of the
+    ferrocene build's (xx|ff) class pairs: ket tiles of one pair (T2 = 1),
+    bra tiles of 16, a third of the bra rows without a real primitive pair,
+    and few enough blocks that the schedule splits the bra loop. Each class
+    is launched twice: the two outputs must be bit-identical. Returns the
+    worst abs error."""
+    rng = np.random.default_rng(8)
+    worst = 0.0
+    for Lb in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+        for Lk in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+            if max(Lb, Lk) <= eri_kernel.KERNEL_MAX_SIDE:
+                continue
+            a, T1, T2 = 6, 16, 1
+            A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+            args, bra, ket = ragged_class(rng, eri_kernel, Lb, Lk, a, 1, A, T1, T2, zero_rows=11)
+            ti, tj = np.array([0, T1, T1]), np.array([T2, 0, T2])
+            sc = eri_kernel.highl_schedule(Lb, Lk, a, 1, A, T1, T2, len(ti),
+                                           torch.cuda.get_device_properties(0).multi_processor_count)
+            out = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+            again = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+            ref = eri_kernel.bra_tiles_plain(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            same = torch.equal(out, again)
+            print(f"kernel1 {eri_kernel.HIGHL_KERNEL.source} Lb={Lb} Lk={Lk} T1={T1} T2={T2} a={a} "
+                  f"A={A} (11 bra rows without real prims, bra loop over {sc.nsplit} splits): max rel "
+                  f"err {rel:.3e}, two launches bit-identical {same}", flush=True)
+            if sc.nsplit < 2 or int((bra.n == 0).sum()) < 11:
+                fail(f"the ({Lb}, {Lk}) case does not take the split bra loop or the empty rows")
+            if not (rel <= KERNEL1_RTOL and same):
+                fail(f"the high-L part at T2=1 disagrees with its twin or itself at Lb={Lb} Lk={Lk}")
+            worst = max(worst, err)
+    return worst
 
 
 def check_boys(eri_kernel) -> None:
@@ -648,11 +712,20 @@ def ferrocene(Q, kernels: dict, paths: dict):
     return system, incore
 
 
+def class_shape(engine, batch, sms: int) -> tuple:
+    """``highl_schedule``'s arguments for one kernel-1 batch of the engine."""
+    i1, i2, ti, _ = batch
+    m1, m2 = engine.layout.metas[i1], engine.layout.metas[i2]
+    return (m1.la + m1.lb, m2.la + m2.lb, m1.a, m2.a, m1.A, m1.tile, m2.tile, len(ti), sms)
+
+
 def time_highl(system, eri_kernel) -> dict:
     """The high-L part on the f-shell class pairs of one ferrocene build:
-    against its twin on every twin-sized batch, then the time of its
-    launches (in all, and by class pair), of the twin and the bound of that
-    work."""
+    against its twin on every twin-sized batch, then its time as every
+    kernel of the kernels line is timed (CUDA events around the calls, host
+    included: ``ms``) and its kernels' device time (torch.profiler:
+    ``device_ms``), in all and by class pair beside each class's own bound,
+    the twin's time and the bound of the whole work."""
     from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 
     engine = TiledEriEngine(system, 1e-12, device="cuda")
@@ -673,8 +746,11 @@ def time_highl(system, eri_kernel) -> dict:
         if not rel <= KERNEL1_RTOL:
             fail(f"the high-L part disagrees with its twin on ferrocene class pair {b[:2]}: {rel:.3e}")
         worst = max(worst, err)
+    kernel_names = ("highl",)  # the part's zero, tile and reduce kernels
     before = eri_kernel.HIGHL_KERNEL.launches
     ms = [cuda_ms(lambda: [engine.bra_batch(*b) for b in kernel_batches], 5) for _ in range(2)]
+    dev_ms = [device_ms(lambda: [engine.bra_batch(*b) for b in kernel_batches], 5, kernel_names)
+              for _ in range(2)]
     plain_ms = cuda_ms(
         lambda: [engine.bra_batch(*b, fn=eri_kernel.bra_tiles_plain) for b in twin_batches], 1)
     if eri_kernel.HIGHL_KERNEL.launches == before:
@@ -684,21 +760,32 @@ def time_highl(system, eri_kernel) -> dict:
         m1, m2 = metas[b[0]], metas[b[1]]
         by_class.setdefault("({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb))),
                             []).append(b)
-    per_class = {k: cuda_ms(lambda: [engine.bra_batch(*b) for b in bs], 3) for k, bs in by_class.items()}
-    summed = sum(per_class.values())
-    print("high-L part by class pair on ferrocene: " + ", ".join(
-        f"{k} {v:.3f} ms ({v / summed:.3f})" for k, v in sorted(per_class.items(), key=lambda kv: -kv[1])),
-        flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for k, bs in by_class.items():
+        calls = cuda_ms(lambda: [engine.bra_batch(*b) for b in bs], 3)
+        dev = device_ms(lambda: [engine.bra_batch(*b) for b in bs], 3, kernel_names)
+        cb, cf = engine.bra_kernel_work(pairs={b[:2] for b in bs})
+        bound = max(cb / HBM_BYTES_PER_S, cf / FP64_FLOP_PER_S) * 1e3
+        rows.append((calls, k, dev, bound, cb, cf,
+                     eri_kernel.highl_schedule(*class_shape(engine, bs[0], sms))))
+    summed = sum(r[0] for r in rows)
+    for calls, k, dev, bound, cb, cf, sched in sorted(rows, reverse=True):
+        print(f"high-L class {k}: {calls:.4f} ms ({calls / summed:.3f} of the classes' sum), own "
+              f"bound {bound:.4f} ms ({cb / 1e9:.4f} GB, {cf / 1e9:.4f} GFLOP), time/bound "
+              f"{calls / bound:.1f}; device {dev:.4f} ms, device/bound {dev / bound:.1f}; {sched}",
+              flush=True)
     nbytes, flops = engine.bra_kernel_work(highl)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
-    res = {"max_abs_err": worst, "ms": float(np.mean(ms)), "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
+    res = {"max_abs_err": worst, "ms": float(np.mean(ms)), "device_ms": float(np.mean(dev_ms)),
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
     print(f"high-L part over the ferrocene build's f-shell class pairs ({len(kernel_batches)} "
-          f"launches): {res['ms']:.3f} ms (runs {ms}), twin {plain_ms:.3f} ms, max abs err "
-          f"{worst:.3e}; must move {nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do "
-          f"{flops / 1e9:.2f} GFLOP over the real primitive quartets ({flops_ms:.4f} ms): bound "
-          f"{res['bound_ms']:.4f} ms by {res['bound_by']}", flush=True)
+          f"launches): {res['ms']:.4f} ms (CUDA events around the calls, runs {ms}); its kernels on "
+          f"the device {res['device_ms']:.4f} ms (torch.profiler, runs {dev_ms}); twin "
+          f"{plain_ms:.3f} ms, max abs err {worst:.3e}; must move {nbytes / 1e9:.3f} GB "
+          f"({bytes_ms:.4f} ms) and do {flops / 1e9:.2f} GFLOP over the real primitive quartets "
+          f"({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by {res['bound_by']}", flush=True)
     return res
 
 
@@ -756,6 +843,7 @@ def main(argv: list[str]) -> int:
 
     # 2. each kernel against its twin
     k1_abs, highl_abs = check_kernel1(eri_kernel, ncart)
+    highl_abs = max(highl_abs, check_highl_shapes(eri_kernel, ncart))
     check_boys(eri_kernel)
     k2 = check_kernel2(fock_matvec)
 
@@ -838,7 +926,8 @@ def main(argv: list[str]) -> int:
          "replaces": "qchem_rs_tpu/ops/eri_pallas.py:205 and :175 for L <= 8; beyond, the XLA f64 "
                      "fallback of qchem_rs_tpu/ops/eri_tiled.py:638",
          "launches": fc_launches["eri_tile_highl"], "launches_per_run": fc_launches["eri_tile_highl"],
-         "max_abs_err": max(highl_abs, hl["max_abs_err"]), "ms": hl["ms"], "plain_ms": hl["plain_ms"],
+         "max_abs_err": max(highl_abs, hl["max_abs_err"]), "ms": hl["ms"], "device_ms": hl["device_ms"],
+         "plain_ms": hl["plain_ms"],
          "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"], "library_ms": hl["library_ms"]},
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",

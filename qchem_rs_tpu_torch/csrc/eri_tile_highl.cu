@@ -18,33 +18,53 @@
 // the others; only real primitive quartets are computed (the counts of
 // ops/eri_kernel.py::compact_prims and prim_counts).
 //
-// Design. Fully unrolled instantiations per (LB, LK) past (4, 4) took ptxas
-// and NVVM minutes each and spilled (H = 455 Hermite entries at L = 12, S1
-// and S2 up to 84, A up to 100), so this part gives L at run time:
-// - The recursion plan (one packed int per Hermite entry) and the (s1, s2)
-//   gather with its signs are small device tables built by the caller
-//   (ops/eri_kernel.py::highl_plan), read uniformly across a warp.
-// - R (up to 455 doubles) lives in the thread's own local memory and is
-//   swept in place level by level: entry s reads only entries of lower
-//   index, so a descending sweep needs no second buffer.
-// - One thread owns one (tile, chunk, t1, ket point). A chunk is kAC
-//   Cartesian components alpha by kSC Hermite components s2; its kAC*kSC
-//   sums stay in registers over the whole bra loop and are stored once.
-//   Classes with more components take more chunks, each recomputing R, so
-//   a thread never holds S2 * A sums.
-// - Threads of a warp share (tile, chunk, t1), so the bra loop bound and
-//   every bra and plan load are uniform across the warp; consecutive
-//   threads take consecutive ket points, so the stores coalesce.
+// Design. L is given at run time (fully unrolled instantiations per
+// (LB, LK) past (4, 4) took ptxas and NVVM minutes each and spilled), and
+// the work is laid out so that no thread runs a long serial chain:
+// - A first kernel writes zeros over the whole output (two doubles a
+//   store): the entries of ket points that are not real keep them.
+// - A block of the main kernel owns one (tile, t1) and a group of W real
+//   ket points ("columns"; korder lists them first) of that bra row, so
+//   every column shares the row's bra primitives and E1; a group with no
+//   real ket point exits at once. The block stages the class pair's plan
+//   (ops/eri_kernel.py::highl_plan) in shared memory: the level sizes, the
+//   recursion steps with R stored in level order (entries of order <= k
+//   first), and the (s1, s2) gather in level-order positions with its signs.
+// - The block walks its bra primitives in batches. For a batch it holds one
+//   R table per (column, bra primitive) item in shared memory: one thread
+//   per item evaluates Boys once, then the whole block builds every item's
+//   R level by level (level n reads only level n + 1, so two ping-pong
+//   buffers; one __syncthreads per level): L + 1 dependent steps of a few
+//   entries per thread, where one thread per quartet took L * H.
+// - Each R table serves every output of its column. Thread t owns the
+//   slices t, t + NT, ... of (column, s2, kA alphas): one R load feeds kA
+//   sums, the slice's E1 values come as two double2 loads from the staged
+//   E1 (transposed to [ia][s1][alpha], rows padded to whole slices). The
+//   sums stay in shared memory over the batches and are stored once, with
+//   the sign, columns fastest.
+// - Classes with few blocks (few ket points, T2 = 1) split a column
+//   group's bra primitives over nsplit blocks; each writes its partial sums
+//   to a buffer of its own and a third kernel adds them in split order. No
+//   atomics: two launches on the same inputs give the same bits.
+// The schedule (W, the item capacity NI, the staged bra primitives KB, the
+// threads NT, nsplit and the primitives per split) is chosen by
+// ops/eri_kernel.py::highl_schedule within its shared-memory budgets and
+// the card's SM count; the caller passes the block's shared memory
+// (highl_smem_bytes), and the launcher refuses a count that differs from
+// its own layout's (carve(), smem_bytes()) or passes the card's limit.
 //
-// What bounds it on the H100: FP64 arithmetic and the local-memory traffic
-// of the R sweep, recomputed per chunk; this part is simple and right
-// first. Its classes hold a small share of a build's work (one f shell on
-// each transition-metal atom of 6-31G*).
+// What bounds it on the H100: the write of its output (the zeros of ket
+// points that are not real are most of it) sets the bound; the kernel is
+// held back by the L + 3 barriers of each batch and the latency of the
+// level-by-level R build and of the contraction's shared-memory loads, at
+// 2-4 blocks per SM; FP64 arithmetic is a small share.
 //
 // C interface (bound with ctypes): eri_bra_tiles_highl(...) launches on
 // `stream` and returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "boys.cuh"
 
@@ -55,11 +75,10 @@ using qchem_eri::kPi;
 
 constexpr int kMaxSide = 6;  // LB, LK <= 6: pair classes up to (f, f)
 constexpr int kMaxL = 2 * kMaxSide;
-constexpr int kMaxH = (kMaxL + 1) * (kMaxL + 2) * (kMaxL + 3) / 6;  // 455
-constexpr int kThreads = 128;
-constexpr int kAC = 4;   // Cartesian components alpha of a chunk
-constexpr int kSC = 12;  // Hermite components s2 of a chunk
+constexpr int kMaxThreads = 256;
+constexpr int kA = 4;  // Cartesian components alpha of one thread's slice of sums
 
+static_assert(kA == 4, "the contraction loads a slice's alphas as two double2");
 static_assert(kMaxL <= qchem_eri::kMaxBoys, "the Boys function must reach order L");
 
 int nherm(int L) { return (L + 1) * (L + 2) * (L + 3) / 6; }
@@ -75,16 +94,52 @@ struct Args {
   const int* n1;      // (N1,) real bra primitive pairs
   const int* korder;  // (N2 / T2, c*T2) ket points ic*T2 + t2, real first
   const int* knreal;  // (N2 / T2,) real ket points per tile block
-  // recursion steps of entries 0..H-1, one packed int each: bits 0-1 the
-  // dimension d, 2-5 the coefficient c, 6-9 the order t+u+v, 10-18 the
-  // index of s - e_d, 19-27 the index of s - 2 e_d
-  const int* steps;
-  const int* gather;  // (S1, S2) R index of (s1, s2)
-  const int* odd;     // (S2,) 1 where sign[s2] is -1
-  double* out;        // (nt, A, c*S2, T1, T2)
-  int L, H, S1, S2, a, c, A, T1, T2, nsc, nch;
-  long long total;    // nt * nch * T1 * c * T2 threads
+  const int* plan;    // highl_plan: L+1 level sizes, H steps, S1*S2 gather, S2 odd flags
+  double* out;        // (nsplit, nt, A, c*S2, T1, T2): out itself when nsplit == 1
+  int L, H, H1, S1, S2, a, c, A, T1, T2, KP;
+  int W, groups, NI, KB, nsplit, ps;
+  long long split_size;  // doubles of one split's output
 };
+
+// Shared memory of one block, in doubles then ints then shorts (counted
+// again, from the same layout, by ops/eri_kernel.py::highl_smem_parts).
+struct Smem {
+  double *E1s, *R0, *R1, *F, *PC, *acc;
+  int *lev, *steps, *colo, *colq, *odd;
+  short* gat;
+};
+
+// alpha rows of the staged E1, padded to whole slices
+__host__ __device__ inline int padded_a(int A) { return (A + kA - 1) / kA * kA; }
+
+__host__ __device__ inline long long smem_doubles(const Args& g) {
+  return static_cast<long long>(g.KB) * g.S1 * padded_a(g.A) +
+         static_cast<long long>(g.H + g.H1 + g.L + 1 + 3) * g.NI +
+         static_cast<long long>(g.W) * g.A * g.S2;
+}
+
+__host__ __device__ inline long long smem_bytes(const Args& g) {
+  const long long ints = g.L + 1 + g.H + 2 * g.W + g.S2;
+  const long long bytes = 8 * smem_doubles(g) + 4 * ints + 2LL * g.S1 * g.S2;
+  return (bytes + 15) / 16 * 16;
+}
+
+__device__ inline Smem carve(const Args& g, unsigned char* base) {
+  Smem s;
+  s.E1s = reinterpret_cast<double*>(base);  // first: 16-byte aligned rows for double2 loads
+  s.R0 = s.E1s + static_cast<size_t>(g.KB) * g.S1 * padded_a(g.A);
+  s.R1 = s.R0 + static_cast<size_t>(g.H) * g.NI;
+  s.F = s.R1 + static_cast<size_t>(g.H1) * g.NI;
+  s.PC = s.F + static_cast<size_t>(g.L + 1) * g.NI;
+  s.acc = s.PC + 3 * static_cast<size_t>(g.NI);
+  s.lev = reinterpret_cast<int*>(s.acc + static_cast<size_t>(g.W) * g.A * g.S2);
+  s.steps = s.lev + g.L + 1;
+  s.colo = s.steps + g.H;
+  s.colq = s.colo + g.W;
+  s.odd = s.colq + g.W;
+  s.gat = reinterpret_cast<short*>(s.odd + g.S2);
+  return s;
+}
 
 // F_0..F_L(T) for L in 5..12 (the only orders of this part)
 __device__ __forceinline__ void boys_l(int L, double T, double* F) {
@@ -100,120 +155,188 @@ __device__ __forceinline__ void boys_l(int L, double T, double* F) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) eri_bra_tiles_highl_kernel(const Args g) {
-  const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (gid >= g.total) return;
-  const int KP = g.c * g.T2;
-  const int kp = static_cast<int>(gid % KP);
-  long long rest = gid / KP;
-  const int t1 = static_cast<int>(rest % g.T1);
-  rest /= g.T1;
-  const int ch = static_cast<int>(rest % g.nch);
-  const long long tile = rest / g.nch;
-  const int alpha0 = (ch / g.nsc) * kAC;
-  const int s20 = (ch % g.nsc) * kSC;
-
+__global__ void __launch_bounds__(kMaxThreads) eri_bra_tiles_highl_kernel(const Args g) {
+  extern __shared__ __align__(16) unsigned char highl_smem[];
+  const Smem s = carve(g, highl_smem);
+  const int tid = threadIdx.x, NT = blockDim.x;
+  long long b = blockIdx.x;
+  const int split = static_cast<int>(b % g.nsplit);
+  b /= g.nsplit;
+  const int grp = static_cast<int>(b % g.groups);
+  b /= g.groups;
+  const int t1 = static_cast<int>(b % g.T1);
+  const long long tile = b / g.T1;
+  const int L = g.L, NI = g.NI, S1 = g.S1, S2 = g.S2, A = g.A, A4 = padded_a(A), W = g.W;
   const int kb = g.tj[tile] / g.T2;
-  const int code = g.korder[static_cast<size_t>(kb) * KP + kp];
-  const int t2 = code % g.T2;
-  const int ic = code / g.T2;
+  const int knr = g.knreal[kb];  // real ket points: the first knr of korder's row
+  const size_t plane = static_cast<size_t>(g.T1) * g.T2;
+  const size_t astride = static_cast<size_t>(g.c) * S2 * plane;
+  double* ob = g.out + static_cast<size_t>(split) * g.split_size +
+               static_cast<size_t>(tile) * A * g.c * S2 * plane + static_cast<size_t>(t1) * g.T2;
+
+  // a group of W ket points; a group with none real has nothing to do (its
+  // zeros are written)
+  const int j0 = grp * W;
+  const int nreal = max(0, min(min(W, g.KP - j0), knr - j0));
+  if (nreal == 0) return;
+
+  // the plan, once per block
+  const int* gsrc = g.plan + L + 1 + g.H;
+  for (int i = tid; i < L + 1 + g.H; i += NT) s.lev[i] = __ldg(g.plan + i);  // lev, then steps
+  for (int i = tid; i < S1 * S2; i += NT) s.gat[i] = static_cast<short>(__ldg(gsrc + i));
+  for (int i = tid; i < S2; i += NT) s.odd[i] = __ldg(gsrc + S1 * S2 + i);
+  for (int j = tid; j < nreal; j += NT) {
+    const int code = __ldg(g.korder + static_cast<size_t>(kb) * g.KP + j0 + j);
+    const int t2 = code % g.T2, ic = code / g.T2;
+    s.colo[j] = static_cast<int>(static_cast<size_t>(ic) * S2 * plane + t2);
+    s.colq[j] = (g.tj[tile] + t2) * g.c + ic;
+  }
+  const int O = nreal * A * S2;  // sums of the real ket points, (alpha, s2, j), j fastest
+  for (int o = tid; o < O; o += NT) s.acc[o] = 0.0;
+  __syncthreads();
+
   const int row = g.ti[tile] + t1;
-  const int col = g.tj[tile] + t2;
-  const int nb = kp < g.knreal[kb] ? g.n1[row] : 0;
-  const int L = g.L, S1 = g.S1, S2 = g.S2;
-
-  double acc[kAC][kSC];
-#pragma unroll
-  for (int j = 0; j < kAC; ++j)
-#pragma unroll
-    for (int s = 0; s < kSC; ++s) acc[j][s] = 0.0;
-
-  if (nb > 0) {
-    const size_t kq = static_cast<size_t>(col) * g.c + ic;
-    const double q = g.p2[kq];
-    const double Qx = g.P2[kq * 3], Qy = g.P2[kq * 3 + 1], Qz = g.P2[kq * 3 + 2];
-    double R[kMaxH];
-    double F[kMaxL + 1];
-    for (int ia = 0; ia < nb; ++ia) {
-      const size_t bp = static_cast<size_t>(row) * g.a + ia;
-      const double p = __ldg(g.p1 + bp);
-      const double ps = p + q;
-      const double pq = p * q;
+  const int ia_end = min(g.n1[row], (split + 1) * g.ps);
+  const int kbd = max(1, min(g.KB, NI / nreal));
+  for (int ia0 = split * g.ps; ia0 < ia_end; ia0 += kbd) {
+    const int nbat = min(kbd, ia_end - ia0);
+    const int items = nbat * nreal;  // item i = ia * nreal + j
+    const size_t bp0 = static_cast<size_t>(row) * g.a + ia0;
+    const double* esrc = g.E1 + bp0 * A * S1;
+    // E1s[(ia * S1 + s1) * A4 + alpha]: a slice's kA alphas side by side
+    for (int i = tid; i < nbat * S1 * A4; i += NT) {
+      const int alpha = i % A4, r = i / A4;
+      const int s1 = r % S1, ia = r / S1;
+      s.E1s[i] = alpha < A ? __ldg(esrc + (static_cast<size_t>(ia) * A + alpha) * S1 + s1) : 0.0;
+    }
+    for (int i = tid; i < items; i += NT) {
+      const int ia = i / nreal, j = i - ia * nreal;
+      const size_t bp = bp0 + ia, kq = s.colq[j];
+      const double p = __ldg(g.p1 + bp), q = __ldg(g.p2 + kq);
+      const double ps = p + q, pq = p * q;
       const double inv = 1.0 / (pq * ps);
       const double al = pq * pq * inv;  // pq / (p + q)
-      const double px = __ldg(g.P1 + bp * 3) - Qx;
-      const double py = __ldg(g.P1 + bp * 3 + 1) - Qy;
-      const double pz = __ldg(g.P1 + bp * 3 + 2) - Qz;
+      const double px = __ldg(g.P1 + bp * 3) - __ldg(g.P2 + kq * 3);
+      const double py = __ldg(g.P1 + bp * 3 + 1) - __ldg(g.P2 + kq * 3 + 1);
+      const double pz = __ldg(g.P1 + bp * 3 + 2) - __ldg(g.P2 + kq * 3 + 2);
+      double F[kMaxL + 1];
       boys_l(L, al * (px * px + py * py + pz * pz), F);
       // base[n] = pref (-2 alpha)^n F_n; R is linear in them, so pref rides along
       double w = 2.0 * kPi * kPi * sqrt(kPi) * (ps * inv) * sqrt(pq * inv);
-      for (int n = 0; n <= L; ++n) {
-        F[n] *= w;
+#pragma unroll
+      for (int n = 0; n <= kMaxL; ++n) {
+        if (n <= L) s.F[n * NI + i] = F[n] * w;
         w *= -2.0 * al;
       }
-      R[0] = F[L];
-      for (int n = L - 1; n >= 0; --n) {
-        const int maxo = L - n;
-        for (int s = g.H - 1; s >= 1; --s) {
-          const int st = __ldg(g.steps + s);
-          if (((st >> 6) & 15) > maxo) continue;
-          const int d = st & 3;
-          const double pc = d == 0 ? px : (d == 1 ? py : pz);
-          R[s] = fma(pc, R[(st >> 10) & 511], static_cast<double>((st >> 2) & 15) * R[(st >> 19) & 511]);
-        }
-        R[0] = F[n];
-      }
-      const double* eb = g.E1 + bp * g.A * S1;
-      for (int s1 = 0; s1 < S1; ++s1) {
-        double e[kAC];
-#pragma unroll
-        for (int j = 0; j < kAC; ++j)
-          e[j] = alpha0 + j < g.A ? __ldg(eb + static_cast<size_t>(alpha0 + j) * S1 + s1) : 0.0;
-        const int* gi = g.gather + s1 * S2 + s20;
-#pragma unroll
-        for (int s = 0; s < kSC; ++s) {
-          if (s20 + s < S2) {
-            const double r = R[__ldg(gi + s)];
-#pragma unroll
-            for (int j = 0; j < kAC; ++j) acc[j][s] = fma(e[j], r, acc[j][s]);
-          }
-        }
-      }
+      s.PC[i] = px;
+      s.PC[NI + i] = py;
+      s.PC[2 * NI + i] = pz;
     }
+    __syncthreads();
+    double* top = (L & 1) ? s.R1 : s.R0;
+    for (int i = tid; i < items; i += NT) top[i] = s.F[L * NI + i];
+    __syncthreads();
+    for (int n = L - 1; n >= 0; --n) {
+      double* dst = (n & 1) ? s.R1 : s.R0;
+      const double* src = (n & 1) ? s.R0 : s.R1;
+      // entry w = qd * items + i of the level, w = tid, tid + NT, ...
+      const int cnt = s.lev[n], dq = NT / items, di = NT - dq * items;
+      int qd = tid / items, i = tid - qd * items;
+      while (qd < cnt) {
+        if (qd == 0) {
+          dst[i] = s.F[n * NI + i];
+        } else {
+          const int st = s.steps[qd];
+          const double pc = s.PC[(st & 3) * NI + i];
+          const double cf = static_cast<double>((st >> 2) & 15);
+          dst[qd * NI + i] = fma(pc, src[((st >> 6) & 511) * NI + i], cf * src[((st >> 15) & 511) * NI + i]);
+        }
+        qd += dq;
+        i += di;
+        if (i >= items) {
+          i -= items;
+          ++qd;
+        }
+      }
+      __syncthreads();
+    }
+    // slices (column, s2, kA alphas), columns fastest: one R load feeds kA sums
+    const int nslice = nreal * S2 * (A4 / kA);
+    for (int sl = tid; sl < nslice; sl += NT) {
+      const int j = sl % nreal, r = sl / nreal;
+      const int s2 = r % S2, a0 = r / S2 * kA;
+      const int o0 = (a0 * S2 + s2) * nreal + j, ostep = S2 * nreal;
+      double sum[kA];
+#pragma unroll
+      for (int u = 0; u < kA; ++u) sum[u] = a0 + u < A ? s.acc[o0 + u * ostep] : 0.0;
+      for (int ia = 0; ia < nbat; ++ia) {
+        const double* e = s.E1s + static_cast<size_t>(ia) * S1 * A4 + a0;
+        const double* Ri = s.R0 + ia * nreal + j;
+#pragma unroll 4
+        for (int s1 = 0; s1 < S1; ++s1) {
+          const double rv = Ri[s.gat[s1 * S2 + s2] * NI];
+          const double2 e01 = *reinterpret_cast<const double2*>(e + s1 * A4);
+          const double2 e23 = *reinterpret_cast<const double2*>(e + s1 * A4 + 2);
+          sum[0] = fma(e01.x, rv, sum[0]);
+          sum[1] = fma(e01.y, rv, sum[1]);
+          sum[2] = fma(e23.x, rv, sum[2]);
+          sum[3] = fma(e23.y, rv, sum[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kA; ++u)
+        if (a0 + u < A) s.acc[o0 + u * ostep] = sum[u];
+    }
+    __syncthreads();
   }
 
-  const size_t plane = static_cast<size_t>(g.T1) * g.T2;
-  const size_t cS2 = static_cast<size_t>(g.c) * S2;
-  double* o = g.out + (static_cast<size_t>(tile) * g.A * cS2 + static_cast<size_t>(ic) * S2) * plane +
-              static_cast<size_t>(t1) * g.T2 + t2;
-#pragma unroll
-  for (int j = 0; j < kAC; ++j) {
-    if (alpha0 + j >= g.A) continue;
-    double* oa = o + static_cast<size_t>(alpha0 + j) * cS2 * plane;
-#pragma unroll
-    for (int s = 0; s < kSC; ++s) {
-      if (s20 + s < S2) {
-        const double v = acc[j][s];
-        oa[static_cast<size_t>(s20 + s) * plane] = __ldg(g.odd + s20 + s) ? -v : v;
-      }
-    }
+  // the sums of the real ket points, with their signs, ket points fastest
+  for (int o = tid; o < O; o += NT) {
+    const int j = o % nreal, r = o / nreal;
+    const int s2 = r % S2, alpha = r / S2;
+    const double v = s.acc[o];
+    ob[alpha * astride + s.colo[j] + s2 * plane] = s.odd[s2] ? -v : v;
   }
+}
+
+// out[0..n) = 0.0, two doubles a store (out is 16-byte aligned)
+__global__ void highl_zero_kernel(double* out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const double2 z = make_double2(0.0, 0.0);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n / 2; i += stride)
+    reinterpret_cast<double2*>(out)[i] = z;
+  if (blockIdx.x == 0 && threadIdx.x == 0 && (n & 1)) out[n - 1] = 0.0;
+}
+
+// out[i] = part[0][i] + part[1][i] + ... in split order
+__global__ void highl_reduce_kernel(const double* part, double* out, long long n, int nsplit) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double v = part[i];
+  for (int k = 1; k < nsplit; ++k) v += part[k * n + i];
+  out[i] = v;
 }
 
 }  // namespace qchem_eri_highl
 
-// plan: the int32 table of ops/eri_kernel.py::highl_plan(Lb, Lk), the H
-// packed recursion steps of L = Lb + Lk, then the (S1, S2) gather, then the
-// S2 odd-sign flags.
+// plan: the int32 table of ops/eri_kernel.py::highl_plan(Lb, Lk); W, NI,
+// KB, NT, nsplit, ps: the schedule of ops/eri_kernel.py::highl_schedule;
+// smem: its block's shared memory, ops/eri_kernel.py::highl_smem_bytes;
+// partials: nsplit * the output's size in doubles when nsplit > 1 (else
+// unused).
 extern "C" int eri_bra_tiles_highl(int Lb, int Lk, int a, int c, int A, int T1, int T2,
-                                   int ntiles, const void* E1, const void* p1, const void* P1,
+                                   int ntiles, int W, int NI, int KB, int NT, int nsplit, int ps,
+                                   int smem,
+                                   const void* E1, const void* p1, const void* P1,
                                    const void* p2, const void* P2, const void* ti, const void* tj,
                                    const void* n1, const void* korder, const void* knreal,
-                                   const void* plan, void* out, void* stream) {
+                                   const void* plan, void* partials, void* out, void* stream) {
   using namespace qchem_eri_highl;
   if (Lb < 0 || Lk < 0 || Lb > kMaxSide || Lk > kMaxSide || (Lb <= 4 && Lk <= 4) || a <= 0 ||
-      c <= 0 || A <= 0 || T1 <= 0 || T2 <= 0 || ntiles <= 0 || n1 == nullptr ||
-      korder == nullptr || knreal == nullptr || plan == nullptr)
+      c <= 0 || A <= 0 || T1 <= 0 || T2 <= 0 || ntiles <= 0 || W <= 0 || NI < W || KB <= 0 ||
+      NT <= 0 || NT > kMaxThreads || NT % 32 || nsplit <= 0 || ps <= 0 ||
+      static_cast<long long>(nsplit) * ps < a || (nsplit > 1 && partials == nullptr) ||
+      n1 == nullptr || korder == nullptr || knreal == nullptr || plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Args g;
   g.E1 = static_cast<const double*>(E1);
@@ -226,24 +349,51 @@ extern "C" int eri_bra_tiles_highl(int Lb, int Lk, int a, int c, int A, int T1, 
   g.n1 = static_cast<const int*>(n1);
   g.korder = static_cast<const int*>(korder);
   g.knreal = static_cast<const int*>(knreal);
+  g.plan = static_cast<const int*>(plan);
   g.L = Lb + Lk;
   g.H = nherm(g.L);
+  g.H1 = nherm(g.L - 1);
   g.S1 = nherm(Lb);
   g.S2 = nherm(Lk);
-  g.steps = static_cast<const int*>(plan);
-  g.gather = g.steps + g.H;
-  g.odd = g.gather + g.S1 * g.S2;
-  g.out = static_cast<double*>(out);
   g.a = a;
   g.c = c;
   g.A = A;
   g.T1 = T1;
   g.T2 = T2;
-  g.nsc = (g.S2 + kSC - 1) / kSC;
-  g.nch = (A + kAC - 1) / kAC * g.nsc;
-  g.total = static_cast<long long>(ntiles) * g.nch * T1 * c * T2;
-  const long long blocks = (g.total + kThreads - 1) / kThreads;
-  eri_bra_tiles_highl_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(g);
+  g.W = W;
+  g.KP = c * T2;
+  g.groups = (g.KP + W - 1) / W;
+  g.NI = NI;
+  g.KB = KB;
+  g.nsplit = nsplit;
+  g.ps = ps;
+  g.split_size = static_cast<long long>(ntiles) * A * c * g.S2 * T1 * T2;
+  g.out = static_cast<double*>(nsplit > 1 ? partials : out);
+  // the caller's count of the block's shared memory must be the layout's,
+  // and fit the card's per-block limit
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(ntiles) * T1 * g.groups * nsplit;
+  if (smem != smem_bytes(g) || smem > max_smem || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(eri_bra_tiles_highl_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // zeros first (every ket point that is not real keeps them), then the sums
+  const long long nout = g.split_size * nsplit;
+  highl_zero_kernel<<<static_cast<unsigned>(std::min(nout / 2 / 256 + 1, 8192LL)), 256, 0, st>>>(g.out, nout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  eri_bra_tiles_highl_kernel<<<static_cast<unsigned>(blocks), NT, static_cast<size_t>(smem), st>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  const long long n = g.split_size;
+  highl_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      g.out, static_cast<double*>(out), n, nsplit);
   return static_cast<int>(cudaGetLastError());
 }

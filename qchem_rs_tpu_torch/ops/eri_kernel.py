@@ -23,10 +23,12 @@ instantiated for each (Lb, Lk) with Lb, Lk <= 4, serves every class pair of
 bases up to d shells such as cc-pVDZ. The pair classes with Lb or Lk of 5
 or 6 (f-shell pairs, up to (ff|ff) at L = 12, where the JAX package falls
 back to XLA f64 past L = 8) take the high-L part, ``csrc/eri_tile_highl.cu``:
-one kernel with L given at run time, its recursion plan and gather read
-from a small device table (``highl_plan``), R in the thread's local memory
-and its sums chunked over alpha and s2. Both parts have the same contract
-and output layout, and each counts its own launches.
+one kernel with L given at run time and its plan in a small device table
+(``highl_plan``), in which a thread block builds one R table per primitive
+quartet in shared memory, level by level across its threads, and shares it
+among every output of its ket point (the launch shape: ``highl_schedule``).
+Both parts have the same contract and output layout, and each counts its
+own launches.
 
 With primitive counts (``PrimCounts``: each pair's primitive pairs with
 nonzero E first, and their number), the kernel sums only over real bra
@@ -86,7 +88,7 @@ KERNEL = CudaKernel(
 HIGHL_KERNEL = CudaKernel(
     "eri_tile_highl.cu",
     "eri_bra_tiles_highl",
-    [_c.c_int] * 8 + [_c.c_void_p] * 13,
+    [_c.c_int] * 15 + [_c.c_void_p] * 14,
 )
 #: the kernels' Boys function on its own, for holding it against ``boys``
 BOYS_PROBE = CudaKernel(
@@ -163,19 +165,111 @@ def all_prims(N: int, c: int, T: int, device) -> PrimCounts:
 
 @lru_cache(maxsize=None)
 def highl_plan(Lb: int, Lk: int) -> np.ndarray:
-    """The high-L part's device table for class pair (Lb, Lk), int32: the
-    packed recursion step of each of the H Hermite entries of L = Lb + Lk
-    (``mcmurchie._r_plan``: bits 0-1 the dimension d, 2-5 the coefficient,
-    6-9 the order t+u+v, 10-18 the index of s - e_d, 19-27 that of
-    s - 2 e_d), then the (S1, S2) gather of ``eri._r2_gather``, then one flag
-    per s2 whose sign is -1."""
+    """The high-L part's device table for class pair (Lb, Lk), int32, with R
+    stored in level order (the H Hermite entries of L = Lb + Lk sorted
+    stably by their order t+u+v, so that the entries a recursion level
+    needs come first):
+
+    - L+1 level sizes: level n computes the first nherm(L - n) entries;
+    - H packed recursion steps in level order (``mcmurchie._r_plan``): bits
+      0-1 the dimension d, 2-5 the coefficient, 6-14 the level-order
+      position of s - e_d, 15-23 that of s - 2 e_d;
+    - the (S1, S2) gather of ``eri._r2_gather`` as level-order positions;
+    - one flag per s2 whose sign is -1."""
     L = Lb + Lk
     onehot, idx1, idx2, coef = _r_plan(L)
     order = np.asarray(hermite_components(L)).sum(axis=1)
-    steps = (onehot.argmax(axis=1) | coef.astype(np.int64) << 2 | order << 6
-             | idx1.astype(np.int64) << 10 | idx2.astype(np.int64) << 19)
+    sorted_s = np.argsort(order, kind="stable")  # position -> entry
+    pos = np.argsort(sorted_s)  # entry -> position
+    steps = (onehot.argmax(axis=1) | coef.astype(np.int64) << 2
+             | pos[idx1].astype(np.int64) << 6 | pos[idx2].astype(np.int64) << 15)[sorted_s]
+    levels = [nhermite(L - n) for n in range(L + 1)]
     idx, sign = _r2_gather(Lb, Lk)
-    return np.concatenate([steps, idx.ravel(), (sign < 0)]).astype(np.int32)
+    return np.concatenate([levels, steps, pos[idx].ravel(), (sign < 0)]).astype(np.int32)
+
+
+#: threads of a high-L block at most (the kernel's __launch_bounds__)
+HIGHL_MAX_THREADS = 256
+#: shared-memory budgets of a high-L block in bytes: its R tables, its staged
+#: E1 rows and its sums (a block takes more only when one item or column
+#: needs it)
+HIGHL_BUDGETS = (64 << 10, 16 << 10, 16 << 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class HighlSchedule:
+    """The high-L part's launch shape for one class pair and tile batch.
+
+    A block owns one (tile, t1), a group of W consecutive ket points of its
+    tile block in ``korder`` (real ones first; ceil(c*T2 / W) groups per t1)
+    and split ``split`` of the bra primitives, [split*ps, (split+1)*ps). It
+    holds R tables for NI (ket point, bra primitive) items and E1 rows of KB
+    bra primitives at once; with r real ket points in its group it walks its
+    bra primitives in batches of max(1, min(KB, NI // r)). Its NT threads
+    own its sums in slices of (real ket point, s2, 4 alphas), ket points
+    fastest, round robin: thread t the slices t, t + NT, .... With nsplit > 1
+    every split writes its partial sums and a second kernel adds them in
+    split order.
+    """
+
+    W: int
+    NI: int
+    KB: int
+    NT: int
+    nsplit: int
+    ps: int
+
+
+def highl_smem_parts(Lb: int, Lk: int, A: int) -> tuple[int, int, int, int]:
+    """Bytes of a high-L block's shared memory, in the layout of ``carve``
+    in ``csrc/eri_tile_highl.cu``: (per staged bra primitive, per R item,
+    per column, fixed). A primitive holds its E1 rows, alphas padded to
+    slices of 4; an item its two R level buffers, its Boys base and PC; a
+    column its sums and two ints; the fixed part the plan's level sizes,
+    steps and sign flags (ints) and its gather (shorts)."""
+    L = Lb + Lk
+    H, S1, S2 = nhermite(L), nhermite(Lb), nhermite(Lk)
+    return (8 * S1 * (-(-A // 4) * 4), 8 * (H + nhermite(L - 1) + L + 1 + 3), 8 * A * S2 + 8,
+            4 * (L + 1 + H + S2) + 2 * S1 * S2)
+
+
+def highl_smem_bytes(Lb: int, Lk: int, A: int, sc: HighlSchedule) -> int:
+    """Dynamic shared memory of one high-L block under ``sc``, rounded up to
+    16 bytes. The launcher counts it again from the same layout and refuses
+    a launch whose count differs."""
+    e1, item, col, fixed = highl_smem_parts(Lb, Lk, A)
+    return -(-(sc.KB * e1 + sc.NI * item + sc.W * col + fixed) // 16) * 16
+
+
+@lru_cache(maxsize=None)
+def highl_schedule(Lb: int, Lk: int, a: int, c: int, A: int, T1: int, T2: int, ntiles: int,
+                   sms: int, budgets: tuple = HIGHL_BUDGETS,
+                   max_threads: int = HIGHL_MAX_THREADS) -> HighlSchedule:
+    """The launch shape of the high-L part for class pair (Lb, Lk) with a
+    bra and c ket primitive pairs, A bra components, tile edges T1, T2 and
+    ``ntiles`` tiles, on a card of ``sms`` streaming multiprocessors: a
+    class pair with fewer than two blocks per SM splits its bra loop.
+    ``budgets`` and ``max_threads`` as ``HIGHL_BUDGETS`` and
+    ``HIGHL_MAX_THREADS``."""
+    e1, item, col, _ = highl_smem_parts(Lb, Lk, A)
+    r_budget, e1_budget, acc_budget = budgets
+    NI = max(1, r_budget // item)
+    KP = c * T2
+    W = max(1, min(KP, 32, NI, acc_budget // col))
+    KB = max(1, min(a, NI, e1_budget // e1))
+    NI = min(NI, W * KB)
+    slices = W * nhermite(Lk) * -(-A // 4)  # of 4 alphas
+    NT = min(max_threads, max(64, -(-slices // 32) * 32))
+    blocks = ntiles * T1 * -(-KP // W)
+    nsplit = 1 if blocks >= 2 * sms else min(a, -(-2 * sms // blocks))
+    ps = -(-a // nsplit)
+    nsplit = -(-a // ps)
+    return HighlSchedule(W=W, NI=NI, KB=KB, NT=NT, nsplit=nsplit, ps=ps)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @lru_cache(maxsize=None)
@@ -264,7 +358,7 @@ def _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket) -> None:
 
 
 def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
-              offsets=None) -> torch.Tensor:
+              offsets=None, schedule=None) -> torch.Tensor:
     """Bra-contracted ERI tiles, (ntiles, A, c*S2, T1, T2) float64.
 
     E1 (N1, a, A, S1), p1 (N1, a), P1 (N1, a, 3) hold the whole bra class and
@@ -274,10 +368,13 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
     neither; without them every primitive pair counts as real, and the
     kernel gets ``all_prims`` counts). ``offsets`` may hold ti and tj
     already on the device as int32 tensors, for a caller that launches the
-    same tiles again and again: a copy from host memory makes the host wait
-    for the device. CPU tensors take the twin; CUDA tensors launch the
+    same tiles again and again; without them both go to the card in one
+    copy that does not wait for the card's queue (a blocking copy would).
+    CPU tensors take the twin; CUDA tensors launch the
     kernel: the template part for Lb, Lk <= 4, the high-L part for the
-    classes with Lb or Lk of 5 or 6.
+    classes with Lb or Lk of 5 or 6, in the launch shape ``schedule``
+    (``highl_schedule``'s when None; another, to try it, only for the
+    high-L part).
     """
     _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     dev = E1.device
@@ -287,6 +384,8 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
         raise ValueError(f"unsupported device {dev}")
     if max(Lb, Lk) > HIGHL_MAX_SIDE:
         raise ValueError(f"the CUDA tile kernels take Lb, Lk <= {HIGHL_MAX_SIDE}, got ({Lb}, {Lk})")
+    if schedule is not None and max(Lb, Lk) <= KERNEL_MAX_SIDE:
+        raise ValueError(f"a schedule is for the high-L part only, not ({Lb}, {Lk})")
     N1, a, A, S1 = E1.shape
     c = p2.shape[1]
     S2 = nhermite(Lk)
@@ -295,23 +394,27 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
     if nt == 0:
         return out
     if offsets is None:
-        offsets = (torch.as_tensor(np.asarray(ti, dtype=np.int32), device=dev),
-                   torch.as_tensor(np.asarray(tj, dtype=np.int32), device=dev))
+        offsets = tuple(torch.from_numpy(np.stack([ti, tj]).astype(np.int32)).to(dev, non_blocking=True))
     ti_d, tj_d = offsets
     if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
         raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
     if ket is None:
         bra, ket = all_prims(N1, a, T1, dev), all_prims(p2.shape[0], c, T2, dev)
     ptrs = (E1.data_ptr(), p1.data_ptr(), P1.data_ptr(), p2.data_ptr(), P2.data_ptr(),
-            ti_d.data_ptr(), tj_d.data_ptr(), bra.n.data_ptr(), ket.order.data_ptr(),
-            ket.nreal.data_ptr())
+            ti_d.data_ptr(), tj_d.data_ptr(), bra.n.data_ptr())
     with torch.cuda.device(dev):
         if max(Lb, Lk) <= KERNEL_MAX_SIDE:
-            KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, *ptrs, out.data_ptr(), stream_of(out))
+            KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, *ptrs, ket.order.data_ptr(),
+                          ket.nreal.data_ptr(), out.data_ptr(), stream_of(out))
         else:
-            HIGHL_KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, *ptrs,
-                                _device_plan(Lb, Lk, dev).data_ptr(), out.data_ptr(),
-                                stream_of(out))
+            sc = schedule or highl_schedule(Lb, Lk, a, c, A, T1, T2, nt, _sm_count(dev))
+            partials = (torch.empty((sc.nsplit,) + out.shape, dtype=out.dtype, device=dev)
+                        if sc.nsplit > 1 else out)
+            HIGHL_KERNEL.launch(Lb, Lk, a, c, A, T1, T2, nt, sc.W, sc.NI, sc.KB, sc.NT,
+                                sc.nsplit, sc.ps, highl_smem_bytes(Lb, Lk, A, sc), *ptrs,
+                                ket.order.data_ptr(), ket.nreal.data_ptr(),
+                                _device_plan(Lb, Lk, dev).data_ptr(),
+                                partials.data_ptr(), out.data_ptr(), stream_of(out))
     return out
 
 

@@ -363,17 +363,18 @@ class TiledEriEngine:
             for i1, i2, ti, _ in self._tasks
         )
 
-    def bra_kernel_work(self, select=None) -> tuple[float, float]:
+    def bra_kernel_work(self, select=None, pairs=None) -> tuple[float, float]:
         """(bytes, FLOPs) that kernel 1 must move and compute over one
         ``build()``: each class's E, p, P read once plus every output
         written once; ``_quartet_flops`` over the real primitive quartets
         (nonzero E on both sides) of every executed tile. ``select(Lb, Lk)``
-        keeps only the class pairs for which it is true (the classes they
-        read are then the only inputs counted)."""
+        keeps only the class pairs for which it is true, and ``pairs``, a
+        set of class pairs (i1, i2), only those (the classes they read are
+        then the only inputs counted)."""
         metas = self.layout.metas
         n = [c.n.cpu().numpy().astype(np.float64) for c in self._counts]
-        tasks = [t for t in self._tasks if select is None or select(
-            metas[t[0]].la + metas[t[0]].lb, metas[t[1]].la + metas[t[1]].lb)]
+        tasks = [t for t in self._tasks if (pairs is None or t[:2] in pairs) and (
+            select is None or select(metas[t[0]].la + metas[t[0]].lb, metas[t[1]].la + metas[t[1]].lb))]
         read = {i for i1, i2, _, _ in tasks for i in (i1, i2)}
         nbytes = sum(8.0 * (E.numel() + p.numel() + P.numel())
                      for i, (E, p, P) in enumerate(self._padded) if i in read)

@@ -452,27 +452,152 @@ def test_twin_with_ragged_counts_matches_original_order(Lb, Lk):
 
 @pytest.mark.parametrize("Lb,Lk", [(5, 0), (0, 5), (5, 3), (4, 6), (6, 6)])
 def test_highl_plan_packs_the_recursion_and_gather(Lb, Lk):
-    # the high-L part's device table, unpacked, is mcmurchie._r_plan's
-    # recursion with each entry's order, then eri._r2_gather's indices and
-    # signs
+    # the high-L part's device table, unpacked: the level sizes, then
+    # mcmurchie._r_plan's recursion with R in level order (entries sorted
+    # stably by their order t+u+v), then eri._r2_gather's indices in that
+    # order and its signs
     from qchem_rs_tpu_torch.ops.eri import _r2_gather
     from qchem_rs_tpu_torch.ops.mcmurchie import _r_plan, hermite_components
 
     L, S1, S2 = Lb + Lk, nhermite(Lb), nhermite(Lk)
     plan = eri_kernel.highl_plan(Lb, Lk)
     H = nhermite(L)
-    assert plan.dtype == np.int32 and plan.shape == (H + S1 * S2 + S2,)
-    steps = plan[:H].astype(np.int64)
+    assert plan.dtype == np.int32 and plan.shape == (L + 1 + H + S1 * S2 + S2,)
+    np.testing.assert_array_equal(plan[:L + 1], [nhermite(L - n) for n in range(L + 1)])
+    order = np.sum(hermite_components(L), axis=1)
+    entry = np.argsort(order, kind="stable")  # level-order position -> Hermite entry
+    pos = np.argsort(entry)
+    assert (np.diff(order[entry]) >= 0).all()
+    steps = plan[L + 1:L + 1 + H].astype(np.int64)
     onehot, idx1, idx2, coef = _r_plan(L)
-    np.testing.assert_array_equal(steps[1:] & 3, onehot[1:].argmax(axis=1))
-    np.testing.assert_array_equal((steps >> 2) & 15, coef)
-    np.testing.assert_array_equal((steps >> 6) & 15, np.sum(hermite_components(L), axis=1))
-    np.testing.assert_array_equal((steps >> 10) & 511, idx1)
-    np.testing.assert_array_equal((steps >> 19) & 511, idx2)
-    assert ((steps >> 28) == 0).all()
+    np.testing.assert_array_equal(steps[1:] & 3, onehot[entry][1:].argmax(axis=1))
+    np.testing.assert_array_equal((steps >> 2) & 15, coef[entry])
+    np.testing.assert_array_equal((steps >> 6) & 511, pos[idx1[entry]])
+    np.testing.assert_array_equal((steps >> 15) & 511, pos[idx2[entry]])
+    assert ((steps >> 24) == 0).all()
+    # every step reads only entries of lower order, which the level before holds
+    for q in range(1, H):
+        assert order[entry[(steps[q] >> 6) & 511]] == order[entry[q]] - 1
     idx, sign = _r2_gather(Lb, Lk)
-    np.testing.assert_array_equal(plan[H:H + S1 * S2].reshape(S1, S2), idx)
-    np.testing.assert_array_equal(plan[H + S1 * S2:], sign < 0)
+    np.testing.assert_array_equal(plan[L + 1 + H:L + 1 + H + S1 * S2].reshape(S1, S2), pos[idx])
+    np.testing.assert_array_equal(plan[L + 1 + H + S1 * S2:], sign < 0)
+
+
+def _run_highl_row(Lb, Lk, sc, E1, p1, P1, p2, P2):
+    """One (tile, t1) row of the high-L part executed in numpy from its
+    host tables: its real ket points in groups of sc.W, one block each.
+    E1 (nb, A, S1), p1 (nb,), P1 (nb, 3) the bra row's real primitives,
+    p2 (r,), P2 (r, 3) its real ket points. Returns (A, S2, r) with the
+    signs applied."""
+    return np.concatenate([_run_highl_block(Lb, Lk, sc, E1, p1, P1, p2[j:j + sc.W], P2[j:j + sc.W])
+                           for j in range(0, len(p2), sc.W)], axis=2)
+
+
+def _run_highl_block(Lb, Lk, sc, E1, p1, P1, p2, P2):
+    """One block of the high-L part in numpy, in the kernel's order: per
+    split and per batch of bra primitives, Boys per (ket point, primitive)
+    item, R level by level through the two ping-pong buffers of the plan's
+    level order, then each thread's slices of the sums; the splits added in
+    order. Its buffers are the block's shared memory at the schedule's
+    capacities, whose bytes must be ``highl_smem_bytes``. Arguments as
+    ``_run_highl_row``'s, with at most sc.W ket points."""
+    from qchem_rs_tpu_torch.ops.boys import boys
+
+    L, H, H1 = Lb + Lk, nhermite(Lb + Lk), nhermite(Lb + Lk - 1)
+    S1, S2 = nhermite(Lb), nhermite(Lk)
+    nb, A = E1.shape[:2]
+    r = len(p2)
+    plan = eri_kernel.highl_plan(Lb, Lk)
+    lev, steps = plan[:L + 1], plan[L + 1:L + 1 + H]
+    gat = plan[L + 1 + H:L + 1 + H + S1 * S2].reshape(S1, S2)
+    sign = np.where(plan[L + 1 + H + S1 * S2:] == 1, -1.0, 1.0)
+    A4, NI = -(-A // 4) * 4, sc.NI
+    assert r <= sc.W <= NI and nb <= sc.nsplit * sc.ps
+    kbd = max(1, min(sc.KB, NI // r))
+    # shared memory: staged E1, two R level buffers, Boys base, PC, sums;
+    # the plan's ints (level sizes, steps, sign flags), two ints a column
+    # and the gather's shorts
+    E1s_mem, acc_mem = np.zeros(sc.KB * S1 * A4), np.zeros(sc.W * A * S2)
+    R = [np.zeros((H, NI)), np.zeros((H1, NI))]
+    Fb, PCb = np.zeros((L + 1, NI)), np.zeros((3, NI))
+    nbytes = sum(x.nbytes for x in (E1s_mem, acc_mem, *R, Fb, PCb)) \
+        + 4 * (len(lev) + len(steps) + S2 + 2 * sc.W) + 2 * gat.size
+    assert -(-nbytes // 16) * 16 == eri_kernel.highl_smem_bytes(Lb, Lk, A, sc)
+    total = np.zeros((A, S2, r))
+    for split in range(sc.nsplit):
+        acc = acc_mem[:A * S2 * r]  # (alpha, s2, ket point), ket points fastest
+        acc[:] = 0.0
+        ia_end = min(nb, (split + 1) * sc.ps)
+        for ia0 in range(split * sc.ps, ia_end, kbd):
+            nbat = min(kbd, ia_end - ia0)
+            items = nbat * r
+            E1s = E1s_mem[:nbat * S1 * A4].reshape(nbat, S1, A4)
+            E1s[:, :, :A] = E1[ia0:ia0 + nbat].transpose(0, 2, 1)
+            ia, j = np.divmod(np.arange(items), r)
+            p, q = p1[ia0 + ia], p2[j]
+            PC = P1[ia0 + ia] - P2[j]  # (items, 3)
+            al = p * q / (p + q)
+            F = boys(L, torch.tensor(al * (PC**2).sum(axis=1))).numpy()
+            Fb[:, :items] = F * (2 * np.pi**2.5 / (p * q * np.sqrt(p + q)))[None] \
+                * (-2 * al)[None] ** np.arange(L + 1)[:, None]
+            PCb[:, :items] = PC.T
+            for x in R:
+                x.fill(np.nan)
+            R[L & 1][0, :items] = Fb[L, :items]
+            for n in range(L - 1, -1, -1):
+                dst, src = R[n & 1], R[(n + 1) & 1]
+                for qd in range(lev[n]):
+                    if qd == 0:
+                        dst[0, :items] = Fb[n, :items]
+                        continue
+                    st = int(steps[qd])
+                    dst[qd, :items] = (PCb[st & 3, :items] * src[(st >> 6) & 511, :items]
+                                       + ((st >> 2) & 15) * src[(st >> 15) & 511, :items])
+            for t in range(sc.NT):
+                for sl in range(t, r * S2 * (A4 // 4), sc.NT):
+                    jj, rest = sl % r, sl // r
+                    s2, a0 = rest % S2, rest // S2 * 4
+                    for u in range(min(4, A - a0)):
+                        o = ((a0 + u) * S2 + s2) * r + jj
+                        for b in range(nbat):
+                            acc[o] += E1s[b, :, a0 + u] @ R[0][gat[:, s2], b * r + jj]
+        total += acc.reshape(A, S2, r)
+    return total * sign[None, :, None]
+
+
+@pytest.mark.parametrize("Lb,Lk", [(0, 5), (1, 5), (2, 5), (5, 3), (4, 5), (5, 5), (6, 5), (6, 6)])
+def test_highl_schedule_executed_in_numpy_matches_jax_r_table(Lb, Lk):
+    # L = 5 ... 12: the high-L part's tables and launch shapes, executed in
+    # numpy as the kernel runs them, against the JAX package's r_table and
+    # its _r2_gather contraction; once with the schedule of a few-block
+    # class (the bra loop split over blocks), once with that of a class of
+    # many tiles, and once with batches of two bra primitives
+    import dataclasses
+
+    from qchem_rs_tpu.ops.eri import _r2_gather as jax_r2_gather
+    from qchem_rs_tpu.ops.mcmurchie import r_table as jax_r_table
+
+    rng = np.random.default_rng(500 + 7 * Lb + Lk)
+    L, S1, S2 = Lb + Lk, nhermite(Lb), nhermite(Lk)
+    A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
+    nb, r = 5, 3
+    E1 = rng.standard_normal((nb, A, S1))
+    p1, p2 = rng.uniform(0.3, 8.0, nb), rng.uniform(0.3, 8.0, r)
+    P1, P2 = rng.standard_normal((nb, 3)) * 1.5, rng.standard_normal((r, 3)) * 1.5
+
+    alpha = p1[:, None] * p2[None, :] / (p1[:, None] + p2[None, :])
+    R = np.asarray(jax_r_table(L, jnp.asarray(alpha), jnp.asarray(P1[:, None] - P2[None])))
+    pref = 2 * np.pi**2.5 / (p1[:, None] * p2[None] * np.sqrt(p1[:, None] + p2[None]))
+    idx, sign = jax_r2_gather(Lb, Lk)
+    R2 = R[..., idx] * sign * pref[..., None, None]  # (nb, r, S1, S2)
+    ref = np.einsum("iAs,ijst->Atj", E1, R2)
+
+    few = eri_kernel.highl_schedule(Lb, Lk, nb, 1, A, 4, r, 1, 132)
+    many = eri_kernel.highl_schedule(Lb, Lk, nb, 1, A, 32, r, 40, 132)
+    assert few.nsplit > 1 and many.nsplit == 1
+    for sc in (few, many, dataclasses.replace(many, KB=2, NI=2 * many.W)):
+        out = _run_highl_row(Lb, Lk, sc, E1, p1, P1, p2, P2)
+        assert float(np.abs(out - ref).max() / np.abs(ref).max()) <= 1e-12
 
 
 def test_bra_kernel_work_of_a_subset_of_class_pairs(water_631gs_port):
@@ -487,6 +612,24 @@ def test_bra_kernel_work_of_a_subset_of_class_pairs(water_631gs_port):
     assert d_pairs[0] + rest[0] > total[0] > inputs  # both subsets read some classes
     assert eng.bra_kernel_work(lambda Lb, Lk: False) == (0.0, 0.0)
     assert 0 < d_pairs[1] < total[1]
+
+
+def test_bra_kernel_work_of_chosen_class_pairs(water_631gs_port):
+    # class pair by class pair, the FLOPs add up to the whole build's, each
+    # pair's bytes are its outputs and the one or two classes it reads, and
+    # a selection by (Lb, Lk) narrows the chosen pairs further
+    eng = water_631gs_port
+    total = eng.bra_kernel_work()
+    pairs = sorted({t[:2] for t in eng._tasks})
+    assert len(pairs) > 1
+    each = [eng.bra_kernel_work(pairs={p}) for p in pairs]
+    assert abs(sum(f for _, f in each) - total[1]) <= 1e-12 * total[1]
+    for (i1, i2), (nbytes, _) in zip(pairs, each):
+        read = sum(8.0 * sum(x.numel() for x in eng._padded[i]) for i in {i1, i2})
+        assert nbytes > read
+    assert eng.bra_kernel_work(pairs=set()) == (0.0, 0.0)
+    assert eng.bra_kernel_work(lambda Lb, Lk: False, pairs=set(pairs)) == (0.0, 0.0)
+    assert eng.bra_kernel_work(pairs=set(pairs)) == total
 
 
 def _tiny_f_systems():
