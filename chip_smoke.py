@@ -34,7 +34,17 @@ build's f-shell class pairs (CUDA events around the calls, as every
 kernel is timed, and its kernels' device time from torch.profiler, in all
 and by class pair beside each class's own bound); and the Zn atom in
 6-31G* on the card against
-the port on the CPU. Every phase fails loudly; the script exits non-zero
+the port on the CPU. Then this slice's paths: bitwise repeats (kernel 2
+at m = 150, 14400, 14401 and on the naphthalene V2f, a direct J/K pass,
+benzene in core and naphthalene pair and direct runs, each twice: equal
+energy and density bits and iteration counts); water/cc-pVDZ in a field of
++-1e-3 z (the central difference against ``dipole_moment``, direct against
+in core); a benzene checkpoint resumed; MP2 on water/cc-pVDZ against its
+anchor, on naphthalene/cc-pVDZ in core and in pair space (frozen 0 and
+"auto", after a diag_rms 1e-10 pair SCF and a level-shifted one that
+must land on it), with each run's launches, times and peak memory; UMP2
+on triplet O2/6-31G in both forms; and the CLI's ``mp2`` subcommand as a
+subprocess. Every phase fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
@@ -68,6 +78,10 @@ WATER_SPH_E = -76.02679869798291
 # naphthalene/cc-pVDZ spherical, diag_rms 1e-8: a TPU run of the JAX package
 # (README, docs/PROFILE_r03.md), noisy to ~1e-7 as the Cartesian anchor
 NAPHTHALENE_SPH_E = -383.37711111
+# water/cc-pVDZ MP2 at the RHF fixed point (diag_rms 1e-10), the JAX
+# package's in-core mp2 on the CPU: correlation and total energy
+WATER_MP2_CORR = -0.20751927094231992
+WATER_MP2_E = -76.23465834212983
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
@@ -259,12 +273,16 @@ def check_kernel2(fock_matvec) -> dict:
         T = T + T.T
         d = torch.randn(m, generator=gen, dtype=torch.float64, device="cuda")
         out = fock_matvec.matvec(T, d)
+        again = fock_matvec.matvec(T, d)
         ref = fock_matvec.matvec_plain(T, d)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
-        print(f"kernel2 m={m}: max rel err {rel:.3e}", flush=True)
+        same = torch.equal(out, again)
+        print(f"kernel2 m={m}: max rel err {rel:.3e}, two launches bit-identical {same}", flush=True)
         if not rel <= KERNEL2_RTOL:
             fail(f"kernel 2 disagrees with its twin at m={m}: {rel:.3e}")
+        if not same:
+            fail(f"two launches of kernel 2 at m={m} differ")
         worst_abs = max(worst_abs, err)
         timed = (m, T, d) if m == 14400 else None
         if timed is None:
@@ -444,10 +462,22 @@ def drive(kernels: dict, label: str, fn, used: tuple, budget=None):
     return out, launches, peak, wall
 
 
+def check_repeat(label: str, a, b) -> None:
+    """Fail unless two runs on the same inputs gave the same energy bits,
+    density bits and iteration count."""
+    energy = a.electronic_energy == b.electronic_energy
+    density = bool(np.array_equal(a.density, b.density))
+    print(f"{label} twice: energy bits equal {energy}, density bits equal {density}, iterations "
+          f"{a.iterations} and {b.iterations}", flush=True)
+    if not (energy and density and a.iterations == b.iterations):
+        fail(f"two {label} runs on the same inputs differ")
+
+
 def naphthalene_rhf(Q, kernels: dict, paths: dict):
     """RHF on naphthalene/cc-pVDZ through every Fock mode (SAD guess) and
-    the pair mode from the Hückel guess; returns the system and the SAD
-    pair run's output."""
+    the pair mode from the Hückel guess, and the pair and direct SAD runs
+    repeated (equal bits). Returns the system and the SAD pair run's
+    output."""
     from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 
     basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "cc-pVDZ.json"))
@@ -481,6 +511,16 @@ def naphthalene_rhf(Q, kernels: dict, paths: dict):
         fail("the direct mode's peak reaches the size of V2")
     if paths["rhf naphthalene pair lean sad"]["peak_bytes"] >= pair_bytes:
         fail("the lean pair run holds as much as V2f and W")
+    # the pair and direct SAD runs again: the same bits
+    for label in ("pair sad", "direct sad"):
+        mode = label.split()[0]
+        cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=150, fock_mode=mode,
+                                  initial_guess="sad")
+        again, _, _, _ = drive(
+            kernels, f"naphthalene/cc-pVDZ {label} again",
+            lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"),
+            both if mode == "pair" else ("eri_tile",))
+        check_repeat(f"naphthalene/cc-pVDZ {label}", runs[label], again)
     sad = [o.total_energy() for label, o in runs.items() if label.endswith("sad")]
     print(f"naphthalene/cc-pVDZ SAD modes: spread {max(sad) - min(sad):.2e} Eh; pair iterations "
           f"SAD {runs['pair sad'].iterations}, Hückel {runs['pair huckel'].iterations}", flush=True)
@@ -500,10 +540,14 @@ def pair_kernel_numbers(system, density, fock_matvec) -> dict:
     dJ, dK = builder.density_vectors(torch.tensor(density, device="cuda"))
     m = V2f.shape[0]
     out, ref = fock_matvec.matvec(V2f, dJ), fock_matvec.matvec_plain(V2f, dJ)
+    again = fock_matvec.matvec(V2f, dJ)
     torch.cuda.synchronize()
     err, rel = rel_err(out, ref)
     if not rel <= KERNEL2_RTOL:
         fail(f"kernel 2 disagrees with its twin on V2f at m={m}: {rel:.3e}")
+    if not torch.equal(out, again):
+        fail(f"two launches of kernel 2 on V2f at m={m} differ")
+    print(f"kernel2 on naphthalene V2f m={m}: two launches bit-identical", flush=True)
     ms, plain_ms, mv_ms, w_ms = [], [], [], []
     for _ in range(2):
         mv_ms.append(cuda_ms(lambda: torch.mv(V2f, dJ), 20))
@@ -558,9 +602,14 @@ def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> d
             builder.tile_values(k)
 
     before = eri_kernel.KERNEL.launches
-    builder.jk_stack_cart(D)
+    J1, K1 = builder.jk_stack_cart(D)
     torch.cuda.synchronize()
     per_pass = eri_kernel.KERNEL.launches - before
+    J2, K2 = builder.jk_stack_cart(D)
+    same = torch.equal(J1, J2) and torch.equal(K1, K2)
+    print(f"direct pass on naphthalene twice: J and K bit-identical {same}", flush=True)
+    if not same:
+        fail("two direct passes on the same naphthalene density differ")
     if per_pass != len(builder.batches):
         fail(f"a direct pass launched kernel 1 {per_pass} times, not {len(builder.batches)}")
     k1, kv, full = [], [], []
@@ -610,13 +659,17 @@ def batch_sweep(system, D, engine) -> None:
 
 def uhf_6_31g(Q, kernels: dict, paths: dict) -> None:
     """UHF at BASELINE config 3: OH doublet and O2 triplet in 6-31G
-    through the three Fock modes at diag_rms 1e-10."""
+    through the three Fock modes at diag_rms 1e-12. UHF's diag_rms stop (the
+    spin mean of the diagonal RMS, halved) can end OH's oscillating DIIS
+    tail at a dip: at 1e-10 a direct run stopped 1.04e-8 Eh from the fixed
+    point, and with sums in a fixed order such a stop repeats on every run;
+    at 1e-12 the modes agree within 1e-13 on the CPU."""
     basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "6-31G.json"))
     for mol, mult in (("hydroxyl", 2), ("oxygen", 3)):
         system = Q.MolecularSystem.load(os.path.join(ROOT, "data", "mol", f"{mol}.json"), basis)
         energies = []
         for mode in ("incore", "pair", "direct"):
-            cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=mult,
+            cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=500, spin_multiplicity=mult,
                                       fock_mode=mode)
             used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
             out, launches, peak, _ = drive(
@@ -666,11 +719,11 @@ def naphthalene_spherical(Q, kernels: dict, paths: dict) -> None:
 
 def uhf_spherical(Q, kernels: dict, paths: dict) -> None:
     """UHF on the OH doublet in spherical 6-31G* through the three modes at
-    diag_rms 1e-10; they must agree within 1e-8."""
+    diag_rms 1e-12 (as ``uhf_6_31g``); they must agree within 1e-8."""
     system = load_system(Q, "hydroxyl", "6-31G_st", spherical=True)
     energies = []
     for mode in ("incore", "pair", "direct"):
-        cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=2,
+        cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=500, spin_multiplicity=2,
                                   fock_mode=mode)
         used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
         out, launches, peak, _ = drive(
@@ -793,8 +846,8 @@ def zinc_atom(Q, kernels: dict, paths: dict) -> None:
     """RHF on the Zn atom in 6-31G* (39 AOs, an f shell) on the card and
     through the port on the CPU: the energies must agree within 1e-9. Both
     converge to diag_rms 1e-12: at 1e-10 the stop rule leaves the energy
-    some 3e-9 from the fixed point, and the two devices' trajectories (the
-    card's FP64 atomics) may stop on different passes."""
+    some 3e-9 from the fixed point, and the two devices' trajectories (their
+    sums run in different orders) may stop on different passes."""
     basis = Q.BasisSet.load(os.path.join(ROOT, "data", "basis", "6-31G_st.json"))
     system = Q.MolecularSystem.from_arrays(np.array([30]), np.zeros((1, 3)), basis)
     cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=200)
@@ -810,6 +863,174 @@ def zinc_atom(Q, kernels: dict, paths: dict) -> None:
           f"({cpu.iterations} iterations, {time.perf_counter() - t0:.1f} s), dE {dE:.2e}", flush=True)
     if not (cpu.converged and abs(dE) <= 1e-9):
         fail(f"the Zn atom on the card lies {dE:.2e} Eh from the CPU run")
+
+
+def water_field(Q, kernels: dict, paths: dict) -> None:
+    """Water/cc-pVDZ in a field F = +-1e-3 z (a.u.), in core at diag_rms
+    1e-10: the central difference -(E(+F) - E(-F)) / 2F against the z
+    dipole of the field-free density (1e-5 a.u.), and the +F run in direct
+    mode against the in-core one (1e-9 Eh)."""
+    from qchem_rs_tpu_torch.models.properties import dipole_moment
+
+    system = load_system(Q, "water")
+    F = 1e-3
+    runs = {}
+    for label, mode, field, used in (
+        ("no field", "incore", 0.0, ("eri_tile", "fock_matvec")),
+        ("+F", "incore", F, ("eri_tile", "fock_matvec")),
+        ("-F", "incore", -F, ("eri_tile", "fock_matvec")),
+        ("+F direct", "direct", F, ("eri_tile",)),
+    ):
+        cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=100, fock_mode=mode,
+                                  electric_field=(0.0, 0.0, field))
+        out, launches, peak, _ = drive(kernels, f"water/cc-pVDZ field {label}",
+                                       lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"),
+                                       used)
+        paths[f"rhf water field {label}"] = dict(launches, iterations=out.iterations,
+                                                 peak_bytes=peak, total_s=out.timings["total_s"])
+        runs[label] = out
+    mu = dipole_moment(system, runs["no field"].density, "cuda")
+    fd = -(runs["+F"].total_energy() - runs["-F"].total_energy()) / (2 * F)
+    dE = runs["+F direct"].total_energy() - runs["+F"].total_energy()
+    print(f"water/cc-pVDZ field: -dE/dF_z {fd:.8f}, dipole_moment z {mu[2]:.8f} a.u. (difference "
+          f"{fd - mu[2]:.2e}); +F direct - in-core {dE:.2e} Eh", flush=True)
+    if abs(fd - mu[2]) > 1e-5 or abs(dE) > 1e-9:
+        fail("the water/cc-pVDZ field runs miss the dipole or disagree across modes")
+
+
+def benzene_checkpoint(Q, system) -> None:
+    """Benzene/cc-pVDZ in core to diag_rms 1e-10 (at 1e-8 the stop leaves
+    the energy some 1e-8 Eh from the fixed point, so a resumed run could not
+    be held to 1e-9), a checkpoint of it written and read back, and the run
+    resumed from it: it must converge in at most 2 iterations to within
+    1e-9 Eh."""
+    import tempfile
+
+    from qchem_rs_tpu_torch.utils.checkpoint import ScfCheckpoint, from_rhf_output
+
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150)
+    out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+    print(f"benzene/cc-pVDZ at diag_rms 1e-10: E {out.total_energy():.10f}, {out.iterations} "
+          f"iterations", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "benzene.npz")
+        from_rhf_output(out, system).save(path)
+        ck = ScfCheckpoint.load(path)
+    resumed = Q.restricted_hartree_fock(system, cfg, density_guess=ck.density, device="cuda")
+    dE = resumed.total_energy() - out.total_energy()
+    print(f"benzene/cc-pVDZ resumed from its checkpoint: {resumed.iterations} iterations, dE "
+          f"{dE:.2e}, total_s {resumed.timings['total_s']:.4f}", flush=True)
+    if not (resumed.converged and resumed.iterations <= 2 and abs(dE) <= 1e-9):
+        fail("the benzene run resumed from its checkpoint did not converge at once to its energy")
+
+
+def drive_mp2(kernels: dict, label: str, fn, scf_s: float):
+    """One MP2 call with every launch count set to 0 just before and read
+    just after, the peak device memory reset before; fails unless kernel 1
+    was launched. Returns (output, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    tm = res.timings
+    print(f"{label}: correlation_energy {res.correlation_energy:.12f}, total {res.total_energy():.10f}; "
+          f"SCF total_s {scf_s:.4f}; MP2 wall {wall:.4f} s (eri_s {tm['eri_s']:.4f}, transform_s "
+          f"{tm['transform_s']:.4f}, total_s {tm['total_s']:.4f}); peak device memory "
+          f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    if launches["eri_tile"] == 0:
+        fail(f"{label} did not launch kernel 1")
+    return res, launches, peak
+
+
+def mp2_runs(Q, kernels: dict, paths: dict) -> None:
+    """MP2: water/cc-pVDZ against its anchor; naphthalene/cc-pVDZ (SCF to
+    diag_rms 1e-10 from SAD in pair mode, and the same with a level shift
+    of 0.3 Eh, which must land within 1e-8 of it) in core and in pair space
+    with frozen 0 and "auto", the two agreeing within 1e-9; UMP2 on triplet
+    O2/6-31G in core against pair space."""
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
+    res, launches, peak = drive_mp2(kernels, "MP2 water/cc-pVDZ incore",
+                                    lambda: Q.mp2(system, cfg, device="cuda"), float("nan"))
+    paths["mp2 water incore"] = dict(launches, peak_bytes=peak)
+    dc, dE = res.correlation_energy - WATER_MP2_CORR, res.total_energy() - WATER_MP2_E
+    print(f"MP2 water/cc-pVDZ: correlation {dc:.2e}, total {dE:.2e} from the anchor", flush=True)
+    if abs(dc) > 1e-9 or abs(dE) > 1e-9:
+        fail("MP2 water/cc-pVDZ misses its anchor")
+
+    system = load_system(Q, "naphthalene")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200, fock_mode="pair",
+                              initial_guess="sad")
+    out, _, _, _ = drive(kernels, "naphthalene/cc-pVDZ pair sad diag_rms 1e-10",
+                         lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"),
+                         ("eri_tile", "fock_matvec"))
+    scf_s = out.timings["total_s"]
+    # a level-shifted run lands on the same fixed point (at diag_rms 1e-8
+    # the stop leaves each run ~1e-7 Eh from it, so both go to 1e-10)
+    shifted_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200, fock_mode="pair",
+                                      initial_guess="sad", level_shift=0.3)
+    shifted, launches, peak, _ = drive(
+        kernels, "naphthalene/cc-pVDZ pair sad diag_rms 1e-10 level shift 0.3",
+        lambda: Q.restricted_hartree_fock(system, shifted_cfg, device="cuda"),
+        ("eri_tile", "fock_matvec"))
+    paths["rhf naphthalene pair sad level shift"] = dict(
+        launches, iterations=shifted.iterations, peak_bytes=peak, total_s=shifted.timings["total_s"])
+    dE = shifted.total_energy() - out.total_energy()
+    print(f"naphthalene/cc-pVDZ pair sad level shift 0.3: dE {dE:.2e} from the unshifted run; "
+          f"iterations {shifted.iterations} shifted, {out.iterations} unshifted", flush=True)
+    if abs(dE) > 1e-8:
+        fail(f"the level-shifted naphthalene run lies {dE:.2e} Eh from the unshifted one")
+    for frozen in (0, "auto"):
+        energies = []
+        for name, fn in (("incore", Q.mp2), ("pair", Q.mp2_pair_space)):
+            res, launches, peak = drive_mp2(
+                kernels, f"MP2 naphthalene/cc-pVDZ {name} frozen {frozen}",
+                lambda: fn(system, cfg, frozen=frozen, output=out, device="cuda"), scf_s)
+            key = f"mp2 naphthalene {name}" + ("" if frozen == 0 else " frozen auto")
+            paths[key] = dict(launches, peak_bytes=peak, total_s=res.timings["total_s"])
+            energies.append(res.correlation_energy)
+        diff = energies[0] - energies[1]
+        print(f"MP2 naphthalene/cc-pVDZ frozen {frozen}: incore - pair {diff:.2e}", flush=True)
+        if abs(diff) > 1e-9:
+            fail(f"naphthalene MP2 in core and in pair space disagree (frozen {frozen}): {diff:.2e}")
+
+    system = load_system(Q, "oxygen", "6-31G")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=3)
+    out, _, _, _ = drive(kernels, "UHF O2/6-31G triplet for UMP2",
+                         lambda: Q.unrestricted_hartree_fock(system, cfg, device="cuda"),
+                         ("eri_tile", "fock_matvec"))
+    energies = []
+    for name, fn in (("incore", Q.ump2), ("pair", Q.ump2_pair_space)):
+        res, launches, peak = drive_mp2(kernels, f"UMP2 O2/6-31G triplet {name}",
+                                        lambda: fn(system, cfg, output=out, device="cuda"),
+                                        out.timings["total_s"])
+        paths[f"ump2 oxygen {name}"] = dict(launches, peak_bytes=peak)
+        energies.append(res.correlation_energy)
+    diff = energies[0] - energies[1]
+    print(f"UMP2 O2/6-31G triplet: incore - pair {diff:.2e}", flush=True)
+    if abs(diff) > 1e-9 or not energies[0] < 0.0:
+        fail(f"UMP2 O2/6-31G in core and in pair space disagree: {energies}")
+
+
+def cli_mp2() -> None:
+    """The CLI's mp2 subcommand on water/cc-pVDZ as a user runs it: exit 0,
+    and the anchor's energies to their printed digits."""
+    cmd = [sys.executable, "-m", "qchem_rs_tpu_torch.cli", "mp2", "-b", "data/basis/cc-pVDZ.json",
+           "-m", "data/mol/water.json", "--epsilon", "1e-10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"CLI {' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in proc.stdout.splitlines():
+        print(f"  {line}", flush=True)
+    want = [f"mp2 correlation energy: {WATER_MP2_CORR:3.6f}", f"mp2 total energy: {WATER_MP2_E:3.6f}"]
+    if proc.returncode != 0 or not all(w in proc.stdout.splitlines() for w in want):
+        fail(f"the CLI's mp2 did not print {want}: {proc.stderr[-2000:]}")
 
 
 def main(argv: list[str]) -> int:
@@ -884,11 +1105,14 @@ def main(argv: list[str]) -> int:
         fail("benzene/cc-pVDZ did not converge to its anchor")
     if not all(v > 0 for v in launches.values()):
         fail(f"the benzene run bypassed a kernel: {launches}")
+    benzene = out
     _, _, out, _ = run_rhf(Q, "benzene", 1e-8, 150)
     tm = out.timings
     print(f"benzene/cc-pVDZ warm again: total_s {tm['total_s']:.4f}, one_electron_s "
           f"{tm['one_electron_s']:.4f}, eri_s {tm['eri_s']:.4f}, scf_s {tm['scf_s']:.4f}",
           flush=True)
+    check_repeat("benzene/cc-pVDZ incore huckel", benzene, out)
+    benzene_checkpoint(Q, system)
 
     # 5. kernel 1 against its twin at the benzene shapes, and timed
     k1 = time_kernel1(engine, eri_kernel)
@@ -913,6 +1137,11 @@ def main(argv: list[str]) -> int:
     fc_system, fc_launches = ferrocene(Q, named, paths)
     hl = time_highl(fc_system, eri_kernel)
     zinc_atom(Q, named, paths)
+
+    # 8. the SCF options at full size, MP2 in both ERI forms, the CLI
+    water_field(Q, named, paths)
+    mp2_runs(Q, named, paths)
+    cli_mp2()
     print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [

@@ -1,22 +1,31 @@
-"""qchem_rs_tpu_torch: the Hartree-Fock engine of ``qchem_rs_tpu`` ported to
-PyTorch, with its TPU kernels rewritten as hand-written CUDA kernels for
-NVIDIA Hopper (``csrc/``).
+"""qchem_rs_tpu_torch: the Hartree-Fock engine of ``qchem_rs_tpu`` and its
+first post-HF rung ported to PyTorch, with its TPU kernels rewritten as
+hand-written CUDA kernels for NVIDIA Hopper (``csrc/``).
 
 The port covers RHF and UHF: basis and molecule loading, one-electron
-integrals, the Schwarz-screened pair-space ERI build (kernel 1,
-``ops/eri_kernel.py``), three Fock modes (the in-core operator, whose
-per-pass matvec is kernel 2 (``ops/fock_matvec.py``); the pair-space
-matrices of ``ops/fock_pair.py``, whose Coulomb product is kernel 2; the
-integral-direct ``ops/fock_stream.py``, which runs kernel 1 at every
-pass), and the Hückel or SAD guess. Everything is float64.
+integrals (S, T, V and the dipole matrices), the Schwarz-screened
+pair-space ERI build (kernel 1, ``ops/eri_kernel.py``), three Fock modes
+(the in-core operator, whose per-pass matvec is kernel 2
+(``ops/fock_matvec.py``); the pair-space matrices of ``ops/fock_pair.py``,
+whose Coulomb product is kernel 2; the integral-direct
+``ops/fock_stream.py``, which runs kernel 1 at every pass), the Hückel or
+SAD guess, level shifting and uniform external fields; the dipole moment,
+Mulliken charges and <S^2> (``models/properties.py``); SCF checkpoints
+(``utils/checkpoint.py``, the JAX package's ``.npz`` keys); MP2 and UMP2
+in core and in pair space (``models/mp2.py``); and the ``rhf``, ``uhf``,
+``mp2`` and ``info`` subcommands of the CLI. Everything is float64, and
+the SCF repeats bit for bit on the same inputs.
 Every entry point takes an explicit ``device``; CPU tensors run each
 kernel's plain PyTorch twin. The package never imports JAX.
 """
 
 from qchem_rs_tpu_torch.config import HartreeFockConfig
+from qchem_rs_tpu_torch.models.mp2 import Mp2Output, mp2, mp2_pair_space, ump2, ump2_pair_space
+from qchem_rs_tpu_torch.models.properties import dipole_moment, mulliken_charges, spin_expectation
 from qchem_rs_tpu_torch.models.rhf import RestrictedHartreeFockOutput, restricted_hartree_fock
 from qchem_rs_tpu_torch.models.uhf import UnrestrictedHartreeFockOutput, unrestricted_hartree_fock
 from qchem_rs_tpu_torch.utils.basis import BasisSet
+from qchem_rs_tpu_torch.utils.checkpoint import ScfCheckpoint
 from qchem_rs_tpu_torch.utils.system import Atom, MolecularSystem
 
 __all__ = [
@@ -24,8 +33,17 @@ __all__ = [
     "BasisSet",
     "HartreeFockConfig",
     "MolecularSystem",
+    "Mp2Output",
     "RestrictedHartreeFockOutput",
+    "ScfCheckpoint",
     "UnrestrictedHartreeFockOutput",
+    "dipole_moment",
+    "mp2",
+    "mp2_pair_space",
+    "mulliken_charges",
     "restricted_hartree_fock",
+    "spin_expectation",
+    "ump2",
+    "ump2_pair_space",
     "unrestricted_hartree_fock",
 ]

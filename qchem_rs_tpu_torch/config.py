@@ -4,9 +4,8 @@ Mirrors the reference's ``HartreeFockConfig { max_iterations, epsilon }``
 (qchem-rs core/src/hf/mod.rs:9-15) and extends it with the knobs the
 reference hard-codes: DIIS window (rhf.rs:65), density mixing (rhf.rs:80-82),
 convergence metric (rhf.rs:87-88), charge / spin multiplicity, the
-screening threshold, the Fock mode and the initial guess. The port honours
-all of them but level shifting and external fields, which
-``models/rhf.py`` and ``models/uhf.py`` reject with NotImplementedError.
+screening threshold, the Fock mode, the initial guess, level shifting and
+a uniform external field. The port honours all of them.
 """
 
 from __future__ import annotations
@@ -52,9 +51,10 @@ class HartreeFockConfig:
     #: superposition of atomic densities (``models/sad.py``).
     initial_guess: str = "huckel"
     #: level shift sigma (Hartree) added to the virtual-virtual block of the
-    #: orthogonal-basis Fock matrix; 0 disables. Not ported yet.
+    #: orthogonal-basis Fock matrix; 0 disables.
     level_shift: float = 0.0
-    #: uniform external electric field (a.u.); not ported yet.
+    #: uniform external electric field (a.u.), added to H and the nuclear
+    #: energy.
     electric_field: tuple[float, float, float] = (0.0, 0.0, 0.0)
 
     def diis_window(self, default_min: int, default_max: int) -> tuple[int, int]:

@@ -17,7 +17,7 @@
 // The design:
 // - A persistent grid sized from the SM count and the kernel's occupancy.
 //   Each warp owns a contiguous share of the row-major list of upper
-//   blocks, so consecutive blocks of a warp mostly share the row I.
+//   blocks.
 // - A warp owns a block whole: lane l holds columns 2l and 2l+1 of every
 //   row and reads the block in 4 passes of 16 rows, each pass 32
 //   independent 8-byte loads a lane (256 bytes in flight) with
@@ -25,19 +25,28 @@
 //   from L1. 8-byte loads serve every m, odd or even: on the H100 a
 //   16-byte-load variant needed more registers, fitted fewer warps on an
 //   SM and ran slower.
-// - No shared memory and no block barrier: the d slices a warp needs are
-//   read through the read-only cache (d_I uniform across the warp, d_J two
-//   values a lane), the column sums B^T d_I stay in each lane's registers,
-//   and the 16 row sums of a pass are reduced across the warp by a
-//   reduce-scatter of shuffles. Row sums accumulate in registers (lane l
-//   holds rows l and 32 + l) while the warp stays on row I.
-// - Results go into G (zeroed by the caller) with FP64 atomicAdd: 64 per
-//   off-diagonal block for its columns, 64 per row of blocks for its rows.
-//   The order of those adds varies from run to run, so G is reproducible
-//   to rounding (relative 1e-15 in practice), not bit for bit.
+// - No shared memory and no block barrier in the main kernel: the d slices
+//   a warp needs are read through the read-only cache (d_I uniform across
+//   the warp, d_J two values a lane), the column sums B^T d_I stay in each
+//   lane's registers, and the 16 row sums of a pass are reduced across the
+//   warp by a reduce-scatter of shuffles (lane l ends with rows l and
+//   32 + l of the block).
+// - No atomics. Every block writes its partial sums into slots of its own
+//   in a scratch matrix P (nb x m, nb = ceil(m / 64); 26 MB at m = 14400):
+//   block (I, J), J > I, writes B^T d_I at P[I, J's columns] and B d_J at
+//   P[J, I's columns], the mirrored slot; a diagonal block writes B d_I at
+//   P[I, I's columns]. Each slot is written exactly once, so
+//   G = sum over K of P[K]. A second kernel adds the nb rows in a fixed
+//   order: thread (c, s) of a 32 x 8 block sums rows s, s + 8, s + 16, ...
+//   of column c in turn, then slice 0 adds the 8 slices in the order
+//   0..7. The order of every add is set by the code and not by the
+//   scheduling of blocks, so G repeats bit for bit from run to run. The
+//   scratch costs writing and reading 2 nb m doubles (52 MB at m = 14400)
+//   beside the 0.83 GB of terms.
 //
-// C interface (bound with ctypes): fock_matvec(m, terms, d, g, stream)
-// launches on `stream` and returns the cudaError_t of the launch.
+// C interface (bound with ctypes): fock_matvec(m, terms, d, part, g,
+// stream), with part a (ceil(m / 64), m) f64 scratch, launches both
+// kernels on `stream` and returns the cudaError_t of the launches.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +56,8 @@ constexpr int kB = 64;       // block edge
 constexpr int kPass = 16;    // rows per pass: independent loads a lane keeps in flight
 constexpr int kWarps = 4;    // warps per thread block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRedCols = 32;    // columns of a reduce block
+constexpr int kRedSlices = 8;   // row slices of a reduce block
 
 __device__ __forceinline__ double ld_stream(const double* p) {
   double v;
@@ -68,13 +79,13 @@ __device__ __forceinline__ void reduce_step(double (&p)[kPass], int lane) {
 }
 
 // pass S over rows I*kB + kPass*S .. + kPass - 1 of block (I, J): column
-// sums into cx, cy; the pass's row sums end in rowacc[S / 2] of lanes
+// sums into cx, cy; the pass's row sums end in rowsum[S / 2] of lanes
 // 16 (S % 2) .. 16 (S % 2) + 15, so lane l holds rows l and 32 + l
 template <int S>
 __device__ __forceinline__ void block_pass(int m, int I, int c0, int lane,
                                            const double* __restrict__ terms,
                                            const double* __restrict__ d, double dJx, double dJy,
-                                           double& cx, double& cy, double (&rowacc)[2]) {
+                                           double& cx, double& cy, double (&rowsum)[2]) {
   const int r0 = I * kB + S * kPass;
   double2 v[kPass];
 #pragma unroll
@@ -103,12 +114,12 @@ __device__ __forceinline__ void block_pass(int m, int I, int c0, int lane,
   reduce_step<2>(p, lane);
   reduce_step<1>(p, lane);
   const double row = p[0] + __shfl_xor_sync(kFull, p[0], 16);
-  if ((lane >> 4) == (S & 1)) rowacc[S / 2] += row;
+  if ((lane >> 4) == (S & 1)) rowsum[S / 2] = row;
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
 fock_matvec_kernel(int m, int nb, long long nblocks, const double* __restrict__ terms,
-                   const double* __restrict__ d, double* __restrict__ g) {
+                   const double* __restrict__ d, double* __restrict__ part) {
   const int lane = threadIdx.x & 31;
   const long long warp = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
@@ -124,38 +135,57 @@ fock_matvec_kernel(int m, int nb, long long nblocks, const double* __restrict__ 
   }
   int J = I + static_cast<int>(rem);
 
-  double rowacc[2] = {0.0, 0.0};  // G at rows I*kB + lane and I*kB + 32 + lane
-  while (true) {
+  for (; t < tend; ++t) {
     const int c0 = J * kB + 2 * lane;
     const double dJx = c0 < m ? __ldg(d + c0) : 0.0;
     const double dJy = c0 + 1 < m ? __ldg(d + c0 + 1) : 0.0;
-    double cx = 0.0, cy = 0.0;  // (B^T d_I) at columns c0, c0 + 1
-    block_pass<0>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowacc);
-    block_pass<1>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowacc);
-    block_pass<2>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowacc);
-    block_pass<3>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowacc);
-    if (J != I) {
-      if (c0 < m) atomicAdd(g + c0, cx);
-      if (c0 + 1 < m) atomicAdd(g + c0 + 1, cy);
+    double cx = 0.0, cy = 0.0;     // (B^T d_I) at columns c0, c0 + 1
+    double rowsum[2] = {0.0, 0.0};  // (B d_J) at rows I*kB + lane, I*kB + 32 + lane
+    block_pass<0>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowsum);
+    block_pass<1>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowsum);
+    block_pass<2>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowsum);
+    block_pass<3>(m, I, c0, lane, terms, d, dJx, dJy, cx, cy, rowsum);
+    if (J != I) {  // G_J += B^T d_I, into row I of P
+      double* col = part + static_cast<size_t>(I) * m;
+      if (c0 < m) col[c0] = cx;
+      if (c0 + 1 < m) col[c0 + 1] = cy;
     }
-    ++t;
-    const bool last = t == tend;
-    ++J;
-    if (last || J == nb) {
-      const int r = I * kB + lane;
-      if (r < m) atomicAdd(g + r, rowacc[0]);
-      if (r + 32 < m) atomicAdd(g + r + 32, rowacc[1]);
-      rowacc[0] = rowacc[1] = 0.0;
-      if (last) return;
+    double* row = part + static_cast<size_t>(J) * m;  // G_I += B d_J, into row J of P
+    const int r = I * kB + lane;
+    if (r < m) row[r] = rowsum[0];
+    if (r + 32 < m) row[r + 32] = rowsum[1];
+    if (++J == nb) {
       ++I;
       J = I;
     }
   }
 }
 
+// g[c] = sum over K of part[K, c], K in a fixed order
+__global__ void __launch_bounds__(kRedCols * kRedSlices)
+fock_matvec_reduce(int m, int nb, const double* __restrict__ part, double* __restrict__ g) {
+  __shared__ double slice[kRedSlices][kRedCols];
+  const int c = blockIdx.x * kRedCols + threadIdx.x;
+  const int s = threadIdx.y;
+  double v = 0.0;
+  if (c < m) {
+#pragma unroll 4
+    for (int K = s; K < nb; K += kRedSlices) v += part[static_cast<size_t>(K) * m + c];
+  }
+  slice[s][threadIdx.x] = v;
+  __syncthreads();
+  if (s == 0 && c < m) {
+    double sum = slice[0][threadIdx.x];
+#pragma unroll
+    for (int k = 1; k < kRedSlices; ++k) sum += slice[k][threadIdx.x];
+    g[c] = sum;
+  }
+}
+
 }  // namespace
 
-extern "C" int fock_matvec(int m, const void* terms, const void* d, void* g, void* stream) {
+extern "C" int fock_matvec(int m, const void* terms, const void* d, void* part, void* g,
+                           void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   static int grid = 0;  // persistent grid: resident blocks per SM times SMs
   if (grid == 0) {
@@ -170,8 +200,13 @@ extern "C" int fock_matvec(int m, const void* terms, const void* d, void* g, voi
   }
   const int nb = (m + kB - 1) / kB;
   const long long nblocks = static_cast<long long>(nb) * (nb + 1) / 2;
-  fock_matvec_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fock_matvec_kernel<<<grid, kWarps * 32, 0, s>>>(
       m, nb, nblocks, static_cast<const double*>(terms), static_cast<const double*>(d),
-      static_cast<double*>(g));
+      static_cast<double*>(part));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fock_matvec_reduce<<<(m + kRedCols - 1) / kRedCols, dim3(kRedCols, kRedSlices), 0, s>>>(
+      m, nb, static_cast<const double*>(part), static_cast<double*>(g));
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,10 @@ The three Fock modes share one loop and differ in G:
   (``ops/fock_stream.py``).
 
 ``initial_guess="sad"`` or a ``density_guess`` start the loop from another
-density than Hückel's. A spherical system (``MolecularSystem(...,
+density than Hückel's. ``level_shift`` shifts the virtual space in every
+eigensolve (``scf.shifted_solve_fock``), and ``electric_field`` adds a
+uniform external field to H and to the nuclear energy (``_field_terms``),
+in every mode. A spherical system (``MolecularSystem(...,
 spherical=True)``) runs every mode in its working basis: S, H, X, D, DIIS
 and the orbitals are nsph-sized, and each Fock mode projects its Cartesian
 integrals (``finish_terms``, or the builders' ``jk`` sandwiches).
@@ -100,7 +103,10 @@ def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, g_fn, D0=None) -> _S
         F = H + G
         err = F @ D @ S - S @ D @ F  # rhf.rs:71
         F = diis.apply(err, F)
-        C, w = scf.solve_fock(F, X)
+        if config.level_shift != 0.0:
+            C, w = scf.shifted_solve_fock(F, 0.5 * D, X, S, config.level_shift)
+        else:
+            C, w = scf.solve_fock(F, X)
         D_new = scf.density_from_coeffs(C, nocc, scale=2.0)
         d_change = D_new - D
         D = D + config.mixing_factor * d_change  # rhf.rs:78-82
@@ -123,10 +129,6 @@ def _check_config(config: HartreeFockConfig) -> None:
         raise NotImplementedError(f"fock_mode={config.fock_mode!r} is not one of {FOCK_MODES}")
     if config.initial_guess not in ("huckel", "sad"):
         raise NotImplementedError(f"initial_guess={config.initial_guess!r} is not ported")
-    if any(config.electric_field):
-        raise NotImplementedError("external electric fields are not ported")
-    if config.level_shift != 0.0:
-        raise NotImplementedError("level shifting is not ported")
 
 
 def check_device(device) -> torch.device:
@@ -148,12 +150,28 @@ def check_occupied(nocc: int, n: int) -> None:
         raise ValueError(f"{nocc} occupied orbitals do not fit the {n} AOs of the basis")
 
 
-def core_hamiltonian(system: MolecularSystem, device):
-    """(S, H, X): overlap, core Hamiltonian T + V and Löwdin X, in the
-    system's working basis."""
+def _field_terms(system: MolecularSystem, field, device):
+    """Core-Hamiltonian and nuclear contributions of a uniform external
+    electric field F (a.u.). The electron carries charge -1, so its energy
+    in the field is +F.r: H += sum_d F_d <i|r_d|j>; the nuclei add
+    -sum_A Z_A F.R_A to the classical energy. Returns (dH, dE_nuclear)."""
+    F = torch.as_tensor(field, dtype=torch.float64, device=device)
+    dH = torch.einsum("d,dij->ij", F, one_electron.dipole_integrals(system, device))
+    de = -float(np.dot(system.charges, np.asarray(system.positions) @ np.asarray(field)))
+    return dH, de
+
+
+def core_hamiltonian(system: MolecularSystem, device, field=(0.0, 0.0, 0.0)):
+    """(S, H, X, dE): overlap, core Hamiltonian T + V (plus the field's
+    term when ``field`` is not zero), Löwdin X, in the system's working
+    basis, and the field's nuclear energy."""
     S = one_electron.overlap(system, device)
     H = one_electron.kinetic(system, device) + one_electron.nuclear(system, device)
-    return S, H, scf.lowdin_x(S)
+    de = 0.0
+    if any(field):
+        dH, de = _field_terms(system, field, device)
+        H = H + dH
+    return S, H, scf.lowdin_x(S), de
 
 
 def restricted_hartree_fock(
@@ -197,7 +215,7 @@ def restricted_hartree_fock(
     if config.fock_mode == "incore":
         engine = TiledEriEngine(system, thr, device=device)
         t1 = time.perf_counter()
-        S, H, X = core_hamiltonian(system, device)
+        S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         _sync(device)
         timings["one_electron_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
@@ -208,7 +226,7 @@ def restricted_hartree_fock(
         def g_fn(D):
             return fock_matvec.matvec(terms, D.reshape(-1)).reshape(n, n)
     else:
-        S, H, X = core_hamiltonian(system, device)
+        S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         if config.fock_mode == "pair":
             builder = PairSpaceFockBuilder(system, thr, device=device)
             t1 = time.perf_counter()
@@ -229,7 +247,7 @@ def restricted_hartree_fock(
     return RestrictedHartreeFockOutput(
         orbital_energies=st.orbital_energies.cpu().numpy(),
         electronic_energy=st.energy,
-        nuclear_repulsion=system.nuclear_repulsion(),
+        nuclear_repulsion=system.nuclear_repulsion() + e_field,
         iterations=st.passes - 1,  # reference reports the 0-based pass index
         converged=st.converged,
         density=st.density.cpu().numpy(),

@@ -10,6 +10,8 @@ Reference algorithms mirrored (qchem-rs core/src/hf/rhf.rs):
   the default; full-matrix RMS available via config)
 - UHF electron counts, with the reference's n/2-n/2 split at spin
   multiplicity 0 (uhf.rs:43-45)
+
+Beyond the reference: the level-shifted Fock solve ``shifted_solve_fock``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,21 @@ def solve_fock(F: torch.Tensor, X: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     """Eigensolve in the orthogonal basis: returns (C, orbital_energies),
     eigenvalues ascending."""
     Fp = X.T @ F @ X
+    w, Cp = torch.linalg.eigh(Fp)
+    return X @ Cp, w
+
+
+def shifted_solve_fock(F: torch.Tensor, D_occ: torch.Tensor, X: torch.Tensor,
+                       S: torch.Tensor, shift: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Level-shifted Fock solve: adds ``shift * (I - P')`` to the
+    orthogonal-basis Fock, with P' = (SX)^T D_occ (SX) the occupied
+    projector there. ``D_occ`` is the idempotent-normalised density (RHF
+    passes D/2; UHF spin densities carry no factor 2). Returns (C, w)."""
+    n = F.shape[0]
+    SX = S @ X
+    Fp = X.T @ F @ X
+    Pp = SX.T @ D_occ @ SX
+    Fp = Fp + shift * (torch.eye(n, dtype=F.dtype, device=F.device) - Pp)
     w, Cp = torch.linalg.eigh(Fp)
     return X @ Cp, w
 

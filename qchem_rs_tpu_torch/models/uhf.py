@@ -18,7 +18,8 @@ Three Fock modes, as in RHF:
 - "direct": one recomputation of the integrals digests both spins
   (``StreamingFockBuilder.jk_stack``).
 
-A spherical system runs every mode in its working (spherical) basis.
+A spherical system runs every mode in its working (spherical) basis. Level
+shifting and a uniform external field run in every mode, as in RHF.
 """
 
 from __future__ import annotations
@@ -120,7 +121,12 @@ def _uhf_scf(H, X, S, nocc: tuple[int, int], config: HartreeFockConfig, jk_fn, D
         F = H[None] + G
         err = F @ D @ S[None] - S[None] @ D @ F
         F = torch.stack([diis[s].apply(err[s], F[s]) for s in range(2)])
-        C, w = (torch.stack(x) for x in zip(*(scf.solve_fock(F[s], X) for s in range(2))))
+        if config.level_shift != 0.0:
+            # the spin density carries no factor 2: it is the occupied projector
+            solves = [scf.shifted_solve_fock(F[s], D[s], X, S, config.level_shift) for s in range(2)]
+        else:
+            solves = [scf.solve_fock(F[s], X) for s in range(2)]
+        C, w = (torch.stack(x) for x in zip(*solves))
         D_new = torch.einsum("sik,sk,sjk->sij", C, occ, C)
         d_change = D_new - D
         D = D + config.mixing_factor * d_change
@@ -174,7 +180,7 @@ def unrestricted_hartree_fock(
     if config.fock_mode == "incore":
         engine = TiledEriEngine(system, thr, device=device)
         t1 = time.perf_counter()
-        S, H, X = core_hamiltonian(system, device)
+        S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         _sync(device)
         timings["one_electron_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
@@ -190,7 +196,7 @@ def unrestricted_hartree_fock(
                 K[:, i] = torch.einsum("kjl,skl->sj", e4[i], D)
             return J, K
     else:
-        S, H, X = core_hamiltonian(system, device)
+        S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         if config.fock_mode == "pair":
             builder = PairSpaceFockBuilder(system, thr, device=device)
             t1 = time.perf_counter()
@@ -216,7 +222,7 @@ def unrestricted_hartree_fock(
         orbital_energies_alpha=st.orbital_energies[0].cpu().numpy(),
         orbital_energies_beta=st.orbital_energies[1].cpu().numpy(),
         electronic_energy=st.energy,
-        nuclear_repulsion=system.nuclear_repulsion(),
+        nuclear_repulsion=system.nuclear_repulsion() + e_field,
         iterations=st.passes - 1,
         converged=st.converged,
         density=st.density.cpu().numpy(),

@@ -16,9 +16,11 @@ it to 1e-15 of its largest entry), so the
 kernel reads only the 64 x 64 blocks on and above the diagonal and uses
 each off-diagonal block twice, G_I += B d_J and G_J += B^T d_I: half the
 bytes of a full read (0.83 GB instead of 1.66 GB at benzene/cc-pVDZ,
-m = 14400). Each warp owns whole blocks of a persistent grid, streams
-them with L1-bypassing loads and adds its row and column sums into
-G with FP64 atomics (so G varies from run to run in the last bits).
+m = 14400). Each warp owns whole blocks of a persistent grid and streams
+them with L1-bypassing loads. There are no atomics: each block writes its
+row and column sums into slots of its own in a scratch matrix P
+(``partials_plain`` shows the layout), and a second kernel adds P's rows
+in a fixed order, so G repeats bit for bit from run to run.
 
 On CPU tensors ``matvec`` runs the twin; on CUDA tensors it launches the
 kernel or raises.
@@ -35,7 +37,8 @@ from qchem_rs_tpu_torch.utils.cuda import CudaKernel, stream_of
 KERNEL = CudaKernel(
     "fock_matvec.cu",
     "fock_matvec",
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 
 
@@ -56,6 +59,28 @@ def matvec_upper_plain(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     blk = torch.arange(m, device=terms.device) // BLOCK
     below = blk[:, None] > blk[None, :]  # blocks strictly below the diagonal
     return torch.where(below, terms.T, terms) @ d
+
+
+def partials_plain(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The kernel's scratch matrix P (nb, m), nb = ceil(m / BLOCK), for any
+    square ``terms``: block (I, J), J > I, of the block upper triangle puts
+    B^T d_I in row I at J's columns and B d_J in row J at I's columns; a
+    diagonal block puts B d_I in row I at I's columns. Every slot is
+    written once, and ``P.sum(0)`` is ``matvec_upper_plain``: the kernel
+    adds the rows in a fixed order (K = s, s + 8, ... per slice s, then the
+    8 slices in turn)."""
+    m = terms.shape[0]
+    nb = -(-m // BLOCK)
+    P = torch.full((nb, m), float("nan"), dtype=terms.dtype, device=terms.device)
+    for i in range(nb):
+        ri = slice(i * BLOCK, min(m, (i + 1) * BLOCK))
+        for j in range(i, nb):
+            rj = slice(j * BLOCK, min(m, (j + 1) * BLOCK))
+            B = terms[ri, rj]
+            P[j, ri] = B @ d[rj]
+            if j != i:
+                P[i, rj] = B.T @ d[ri]
+    return P
 
 
 def matvec(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -81,7 +106,9 @@ def matvec(terms: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     m = terms.shape[0]
-    g = torch.zeros(m, dtype=torch.float64, device=dev)  # the kernel adds into G
+    part = torch.empty((-(-m // BLOCK), m), dtype=torch.float64, device=dev)
+    g = torch.empty(m, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
-        KERNEL.launch(m, terms.data_ptr(), d.data_ptr(), g.data_ptr(), stream_of(g))
+        KERNEL.launch(m, terms.data_ptr(), d.data_ptr(), part.data_ptr(), g.data_ptr(),
+                      stream_of(g))
     return g

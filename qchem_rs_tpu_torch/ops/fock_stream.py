@@ -14,7 +14,10 @@ halved first. The total is then the contraction with the whole mirrored
 V2, the pair-space formulas of ``ops/fock_pair.py``.
 
 - J accumulates in pair space, ``Jp[rows] += V dJ[cols]`` and
-  ``Jp[cols] += V^T dJ[rows]``: two batched products and two index adds.
+  ``Jp[cols] += V^T dJ[rows]``: two batched products, each summed over
+  the tiles of one tile row (resp. column) of the class pair by a product
+  with the batch's one-hot tile-row matrix, then added to that class's
+  contiguous slice of Jp.
 - K is taken at shell-pair granularity rather than element by element. A
   tile block viewed as (T1, ncA, ncB, T2, ncC, ncD) holds (ij|kl) for the
   AOs i, j of its bra pairs and k, l of its ket pairs. With the orientation
@@ -23,11 +26,18 @@ V2, the pair-space formulas of ``ops/fock_pair.py``.
       K[i, k] += V D[j, l]   K[i, l] += V D[j, k]
       K[j, k] += V D[i, l]   K[j, l] += V D[i, k]
   are each one batched contraction of the block with a gathered density
-  block, summed over two component axes before the index add into K: the
-  adds fall by ncB * ncD (resp. ncB * ncC, ...) against one add per tile
-  value. The transpose role of every block is K's transpose (D is
-  symmetric), so K = K1 + K1^T at the end. The JAX package's one-hot
-  products were a way around slow TPU scatters and are not copied.
+  block, summed over two component axes. Its (T1, ncA, T2, ncC) result is
+  then summed over the bra pairs of each destination shell and the ket
+  pairs of each destination shell by two products with one-hot shell
+  matrices, which gives the batch's dense (shells x components)^2 block
+  of K; that block goes to its AOs, each once. The transpose role of
+  every block is K's transpose (D is symmetric), so K = K1 + K1^T at the
+  end.
+
+The reduction order is fixed: no atomics and no ``index_add_`` (whose
+CUDA adds land in a run-to-run order). Products, gathers and the
+elementwise adds of a batch's dense blocks, batch after batch, give the
+same bits on every pass on the same inputs.
 
 A spherical system's densities go through the Cartesian pass as
 ``sph_T D sph_T^T`` and J and K come back as ``sph_T^T X sph_T``
@@ -42,6 +52,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, ket_contract
@@ -78,6 +89,22 @@ class StreamingFockBuilder:
             aj = np.zeros(m.npad, dtype=np.int64)
             ai[: g.npairs], aj[: g.npairs] = g.ao_i, g.ao_j
             self._ao.append((i64(ai), i64(aj)))
+        # per class: the rank of each padded pair's two shells among the
+        # shells of their angular momentum (padding pairs take rank 0 and
+        # weight 0), and per angular momentum its shells' AOs
+        rank = {}
+        self._aos = {}
+        for l, cls in system.shell_classes.items():
+            rank[l] = np.zeros(nao, dtype=np.int64)
+            rank[l][cls.ao_offsets] = np.arange(cls.nshells)
+            self._aos[l] = i64((cls.ao_offsets[:, None] + np.arange(ncart(l))).reshape(-1))
+        self._nshells = {l: cls.nshells for l, cls in system.shell_classes.items()}
+        self._shell = []
+        for g, m in zip(layout.groups, layout.metas):
+            si = np.zeros(m.npad, dtype=np.int64)
+            sj = np.zeros(m.npad, dtype=np.int64)
+            si[: g.npairs], sj[: g.npairs] = rank[g.la][g.ao_i], rank[g.lb][g.ao_j]
+            self._shell.append((i64(si), i64(sj)))
         metas = layout.metas
         for i1, i2, ti, tj in eng._tasks:
             if i1 == i2 and (metas[i1].tile != metas[i2].tile or (tj < ti).any()):
@@ -106,24 +133,29 @@ class StreamingFockBuilder:
 
     def _digest(self, i1, i2, ti_d, tj_d, vals, D, dJ, Jp, K1) -> None:
         """Add one batch's tile values (halved in place on diagonal tiles
-        and weighted in place) into Jp (M, nd) and K1 (nd, nao, nao)."""
+        and weighted in place) into Jp (M, nd) and K1 (nd, nao, nao), in
+        a fixed order."""
         metas = self.engine.layout.metas
         m1, m2 = metas[i1], metas[i2]
         nt, nr, nc = vals.shape
-        nd, nao = D.shape[0], self.nao
-        dev = vals.device
+        nd = D.shape[0]
+        dev, f64 = vals.device, vals.dtype
+        T1, T2 = m1.tile, m2.tile
         if i1 == i2:
-            vals *= torch.where(ti_d == tj_d, 0.5, 1.0).to(vals.dtype)[:, None, None]
+            vals *= torch.where(ti_d == tj_d, 0.5, 1.0).to(f64)[:, None, None]
         rows = m1.row_base + ti_d[:, None] * m1.A + torch.arange(nr, device=dev)  # (nt, nr)
         cols = m2.row_base + tj_d[:, None] * m2.A + torch.arange(nc, device=dev)
-        # J, both roles
-        Jp.index_add_(0, rows.reshape(-1), torch.bmm(vals, dJ[cols]).reshape(-1, nd))
-        Jp.index_add_(0, cols.reshape(-1), torch.bmm(vals.transpose(1, 2), dJ[rows]).reshape(-1, nd))
+        # J, both roles: each tile's product, summed over the tiles of each
+        # tile row (column) of the class pair, into the class's slice of Jp
+        for m, t_d, T, prod in ((m1, ti_d, T1, torch.bmm(vals, dJ[cols])),
+                                (m2, tj_d, T2, torch.bmm(vals.transpose(1, 2), dJ[rows]))):
+            onehot = F.one_hot(t_d // T, m.npad // T).to(f64)  # (nt, tiles of the class)
+            Jp[m.row_base : m.row_base + m.npad * m.A] += (onehot.T @ prod.reshape(nt, -1)).view(
+                -1, nd)
         # K, role 1 at shell-pair granularity
         vals *= self._uk[rows][:, :, None]
         vals *= self._uk[cols][:, None, :]
         ncA, ncB, ncC, ncD = ncart(m1.la), ncart(m1.lb), ncart(m2.la), ncart(m2.lb)
-        T1, T2 = m1.tile, m2.tile
         V = vals.view(nt, T1, ncA, ncB, T2, ncC, ncD)
         ai, aj = self._ao[i1]
         ak, al = self._ao[i2]
@@ -133,19 +165,26 @@ class StreamingFockBuilder:
         J = aj[p1][:, :, None] + torch.arange(ncB, device=dev)
         Kk = ak[p2][:, :, None] + torch.arange(ncC, device=dev)  # (nt, T2, ncC)
         L = al[p2][:, :, None] + torch.arange(ncD, device=dev)
-        K1f = K1.view(nd, nao * nao)
+        # one-hot shell matrices (nt, T, shells of l) of each pair's shells
+        (si, sj), (sk, sl) = self._shell[i1], self._shell[i2]
+        shells = {"i": (si[p1], m1.la), "j": (sj[p1], m1.lb), "k": (sk[p2], m2.la),
+                  "l": (sl[p2], m2.lb)}
+        onehot = {x: (F.one_hot(s, self._nshells[l]).to(f64), l) for x, (s, l) in shells.items()}
 
         def block(X, Y):  # D[s, X[n, x, u], Y[n, y, v]] -> (nd, nt, T1, u, T2, v)
             return D[:, X[:, :, :, None, None], Y[:, None, None, :, :]]
 
-        def add(out, X, Y):  # K1[s, X[n, x, u], Y[n, y, v]] += out[s, n, x, u, y, v]
-            idx = X[:, :, :, None, None] * nao + Y[:, None, None, :, :]
-            K1f.index_add_(1, idx.reshape(-1), out.reshape(nd, -1))
+        def add(out, r, c):  # K1[s, r-AO of (n, x, u), c-AO of (n, y, v)] += out[s, n, x, u, y, v]
+            (orow, lr), (ocol, lc) = onehot[r], onehot[c]
+            z = torch.einsum("snxuyv,nxi->sniuyv", out, orow)
+            kb = torch.einsum("sniuyv,nyk->siukv", z, ocol)  # (nd, shells, u, shells, v)
+            R, C = self._aos[lr], self._aos[lc]
+            K1[:, R[:, None], C[None, :]] += kb.reshape(nd, R.numel(), C.numel())
 
-        add(torch.einsum("nxabycd,snxbyd->snxayc", V, block(J, L)), I, Kk)
-        add(torch.einsum("nxabycd,snxbyc->snxayd", V, block(J, Kk)), I, L)
-        add(torch.einsum("nxabycd,snxayd->snxbyc", V, block(I, L)), J, Kk)
-        add(torch.einsum("nxabycd,snxayc->snxbyd", V, block(I, Kk)), J, L)
+        add(torch.einsum("nxabycd,snxbyd->snxayc", V, block(J, L)), "i", "k")
+        add(torch.einsum("nxabycd,snxbyc->snxayd", V, block(J, Kk)), "i", "l")
+        add(torch.einsum("nxabycd,snxayd->snxbyc", V, block(I, L)), "j", "k")
+        add(torch.einsum("nxabycd,snxayc->snxbyd", V, block(I, Kk)), "j", "l")
 
     def jk_stack_cart(self, D: torch.Tensor):
         """J and K stacks (nd, nao, nao) of a stack of symmetric densities

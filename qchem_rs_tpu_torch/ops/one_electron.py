@@ -1,5 +1,6 @@
-"""One-electron integrals: overlap S, kinetic T, nuclear attraction V (port
-of ``qchem_rs_tpu/ops/one_electron.py:130-160``), in the system's working
+"""One-electron integrals: overlap S, kinetic T, nuclear attraction V and the
+dipole moment matrices <i| r |j> (port of
+``qchem_rs_tpu/ops/one_electron.py:130-212``), in the system's working
 basis: a spherical system's Cartesian matrices are projected as
 ``sph_T^T X sph_T`` (``qchem_rs_tpu/ops/one_electron.py:120-122``).
 
@@ -144,3 +145,45 @@ def nuclear(system: MolecularSystem, device) -> torch.Tensor:
         ),
         device,
     )
+
+
+def _moment_class(d: int, la, lb, a, b, cc, A, B, AB):
+    """<i| r_d |j> for one class pair (Cartesian moment about the origin):
+    in dimension d, <x^i | x | x^j> = E^{ij}_1 + P_x E^{ij}_0 (the t = 1
+    Hermite coefficient plus the Gaussian-product centre); the other two
+    dimensions are plain overlaps."""
+    p = a + b
+    P = (a[..., None] * A[:, None, None, :] + b[..., None] * B[:, None, None, :]) / p[..., None]
+    es = e_cubes(la, lb, a, b, AB)
+    pref = (math.pi / p) ** 1.5 * cc
+
+    def dim(e, i, j, moment):
+        s0 = e[..., i, j, 0]
+        if not moment:
+            return s0
+        e1 = e[..., i, j, 1] if e.shape[-1] > 1 else torch.zeros_like(s0)
+        return e1 + P[..., d] * s0
+
+    blocks = []
+    for ca in cart_components(la):
+        row = []
+        for cb in cart_components(lb):
+            s = 1.0
+            for dd in range(3):
+                s = s * dim(es[dd], ca[dd], cb[dd], moment=(dd == d))
+            row.append(torch.sum(pref * s, dim=(-1, -2)))
+        blocks.append(torch.stack(row, dim=-1))
+    return torch.stack(blocks, dim=-2)
+
+
+def dipole_integrals(system: MolecularSystem, device) -> torch.Tensor:
+    """Cartesian moment matrices <i| r |j>, shape (3, nao, nao), origin 0,
+    nao of the working basis."""
+    return torch.stack([
+        _assemble(
+            system,
+            lambda la, lb, a, b, cc, A, B, AB, pos, d=d: _moment_class(d, la, lb, a, b, cc, A, B, AB),
+            device,
+        )
+        for d in range(3)
+    ])

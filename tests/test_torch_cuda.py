@@ -1,5 +1,7 @@
 """Both hand-written CUDA kernels against their plain twins on the card,
-and the port's RHF through them. These need an NVIDIA GPU with nvcc (the
+the port's RHF through them, bitwise repeats (kernel 2, the direct build's
+J and K, and whole RHF runs in each Fock mode) and MP2 on the card against
+the port on the CPU. These need an NVIDIA GPU with nvcc (the
 kernels are built at first use) and skip elsewhere:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -220,3 +222,48 @@ def test_direct_jk_on_card_matches_cpu_twin(cuda):
     scale = max(float(J_cpu.abs().max()), 1.0)
     assert float((J.cpu() - J_cpu).abs().max()) / scale <= 1e-11
     assert float((K.cpu() - K_cpu).abs().max()) / scale <= 1e-11
+
+
+@pytest.mark.parametrize("m", [150, 14400, 14401])
+def test_fock_matvec_twice_is_bitwise_equal(cuda, m):
+    # kernel 2 adds its partial sums in a fixed order: no atomics
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    T = torch.randn((m, m), generator=gen, dtype=torch.float64, device=cuda)
+    T = T + T.T
+    d = torch.randn(m, generator=gen, dtype=torch.float64, device=cuda)
+    assert torch.equal(fock_matvec.matvec(T, d), fock_matvec.matvec(T, d))
+
+
+def test_direct_jk_twice_is_bitwise_equal(cuda):
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    system = _water_ccpvdz()
+    D = _density_stack(1, system.n_basis(), 3)[0].to(cuda)
+    builder = StreamingFockBuilder(system, 1e-12, device=cuda)
+    (J1, K1), (J2, K2) = builder.jk(D), builder.jk(D)
+    assert torch.equal(J1, J2) and torch.equal(K1, K2)
+
+
+@pytest.mark.parametrize("mode", ["incore", "pair", "direct"])
+def test_rhf_twice_on_card_is_bitwise_equal(cuda, mode):
+    system = _water_ccpvdz()
+    cfg = HartreeFockConfig(epsilon=1e-10, fock_mode=mode)
+    o1 = restricted_hartree_fock(system, cfg, device=cuda)
+    o2 = restricted_hartree_fock(system, cfg, device=cuda)
+    assert o1.converged and o1.iterations == o2.iterations
+    assert o1.electronic_energy == o2.electronic_energy
+    assert (o1.density == o2.density).all()
+
+
+@pytest.mark.parametrize("fn", ["mp2", "mp2_pair_space"])
+def test_mp2_on_card_matches_cpu(cuda, fn):
+    from qchem_rs_tpu_torch.models import mp2
+
+    system = MolecularSystem.load(os.path.join(DATA, "mol", "water.json"),
+                                  BasisSet.load(os.path.join(DATA, "basis", "6-31G.json")))
+    out = restricted_hartree_fock(system, HartreeFockConfig(epsilon=1e-10), device="cpu")
+    launches = eri_kernel.KERNEL.launches
+    card = getattr(mp2, fn)(system, frozen="auto", output=out, device=cuda)
+    assert eri_kernel.KERNEL.launches > launches
+    cpu = getattr(mp2, fn)(system, frozen="auto", output=out, device="cpu")
+    assert abs(card.correlation_energy - cpu.correlation_energy) <= 1e-10

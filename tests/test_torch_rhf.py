@@ -128,11 +128,10 @@ def test_cli_without_cuda_exits_with_one_line(capsys):
 
 
 def test_rhf_rejects_unported_options():
-    # level shifting and external fields are not ported; "dense" is a Fock
-    # mode the JAX package lacks too
+    # "dense" is a Fock mode the JAX package lacks too; level shifting and
+    # external fields are ported (tests/test_torch_scf_options.py)
     system = _port_system("hydrogen", "STO-3G")
-    for cfg in (HartreeFockConfig(level_shift=0.1), HartreeFockConfig(electric_field=(0.0, 0.0, 1e-3)),
-                HartreeFockConfig(fock_mode="dense"), HartreeFockConfig(initial_guess="core")):
+    for cfg in (HartreeFockConfig(fock_mode="dense"), HartreeFockConfig(initial_guess="core")):
         with pytest.raises(NotImplementedError):
             restricted_hartree_fock(system, cfg, device="cpu")
 
