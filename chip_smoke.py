@@ -44,12 +44,28 @@ anchor, on naphthalene/cc-pVDZ in core and in pair space (frozen 0 and
 "auto", after a diag_rms 1e-10 pair SCF and a level-shifted one that
 must land on it), with each run's launches, times and peak memory; UMP2
 on triplet O2/6-31G in both forms; and the CLI's ``mp2`` subcommand as a
-subprocess. Every phase fails loudly; the script exits non-zero
+subprocess. Then the correlated tier past MP2: benzene/cc-pVDZ RHF (in
+core, SAD, diag_rms 1e-10) and spatial CCSD(T) (the main path of this
+tier, both kernels counted over it), then CCSD(T) with frozen 0 and
+"auto" in core and in pair space (in core - pair within 1e-9, iteration
+0 equal to MP2, a repeat equal in bits), each by part (ERI, MO blocks, CC
+iterations, (T)) with its peak memory and launches; water/cc-pVDZ
+CCSD(T) spatial against spinorbital, batched (T) against full, and
+against its JAX anchor; UCCSD(T) on OH and O2/6-31G, card against CPU;
+CIS on naphthalene (pair-mode Davidson against in-core Davidson), dense
+TDHF singlets and triplets on benzene, UCIS on O2; FCI on water/STO-3G,
+card against CPU; EOM-CCSD (matrix-free spatial on benzene, spinorbital
+left and right on water/cc-pVDZ, the determinant tier against the
+matrix-free one, IP/EA and transition moments on water/STO-3G); the
+unrelaxed and relaxed CCSD dipoles on water/cc-pVDZ against a finite
+field; and the CLI's ``ccsd --triples`` as a subprocess. Every phase
+fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
-high-L part at the ferrocene build's); the last line is a JSON object
-naming the device.
+high-L part at the ferrocene build's; ``launches_rhf_ccsd_t`` counts the
+benzene RHF + CCSD(T) path); the last line is a JSON object naming the
+device.
 """
 
 from __future__ import annotations
@@ -82,6 +98,11 @@ NAPHTHALENE_SPH_E = -383.37711111
 # package's in-core mp2 on the CPU: correlation and total energy
 WATER_MP2_CORR = -0.20751927094231992
 WATER_MP2_E = -76.23465834212983
+# water/cc-pVDZ CCSD(T) at the same fixed point (cc_epsilon 1e-10), the JAX
+# package's spatial ccsd on the CPU: CCSD correlation, (T), total (PERF.md §2)
+WATER_CCSD_CORR = -0.21651175874440504
+WATER_CCSD_T = -0.0032255204357757436
+WATER_CCSD_T_E = -76.2468763503677
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
@@ -952,7 +973,8 @@ def mp2_runs(Q, kernels: dict, paths: dict) -> None:
     diag_rms 1e-10 from SAD in pair mode, and the same with a level shift
     of 0.3 Eh, which must land within 1e-8 of it) in core and in pair space
     with frozen 0 and "auto", the two agreeing within 1e-9; UMP2 on triplet
-    O2/6-31G in core against pair space."""
+    O2/6-31G in core against pair space. Returns the naphthalene system,
+    config and SCF output."""
     system = load_system(Q, "water")
     cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
     res, launches, peak = drive_mp2(kernels, "MP2 water/cc-pVDZ incore",
@@ -999,6 +1021,7 @@ def mp2_runs(Q, kernels: dict, paths: dict) -> None:
         if abs(diff) > 1e-9:
             fail(f"naphthalene MP2 in core and in pair space disagree (frozen {frozen}): {diff:.2e}")
 
+    naphthalene = (system, cfg, out)
     system = load_system(Q, "oxygen", "6-31G")
     cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=300, spin_multiplicity=3)
     out, _, _, _ = drive(kernels, "UHF O2/6-31G triplet for UMP2",
@@ -1015,6 +1038,7 @@ def mp2_runs(Q, kernels: dict, paths: dict) -> None:
     print(f"UMP2 O2/6-31G triplet: incore - pair {diff:.2e}", flush=True)
     if abs(diff) > 1e-9 or not energies[0] < 0.0:
         fail(f"UMP2 O2/6-31G in core and in pair space disagree: {energies}")
+    return naphthalene
 
 
 def cli_mp2() -> None:
@@ -1031,6 +1055,335 @@ def cli_mp2() -> None:
     want = [f"mp2 correlation energy: {WATER_MP2_CORR:3.6f}", f"mp2 total energy: {WATER_MP2_E:3.6f}"]
     if proc.returncode != 0 or not all(w in proc.stdout.splitlines() for w in want):
         fail(f"the CLI's mp2 did not print {want}: {proc.stderr[-2000:]}")
+
+
+# --------------------------------------------------------------------------
+# the correlated tier past MP2
+# --------------------------------------------------------------------------
+
+
+def gate(label: str, value: float, limit: float) -> None:
+    """Print |value| beside its limit; fail when it passes it."""
+    print(f"{label}: {value:.3e} (limit {limit:.0e})", flush=True)
+    if not abs(value) <= limit:
+        fail(f"{label} is {value:.3e}, past {limit:.0e}")
+
+
+def drive_cc(kernels: dict, label: str, fn, used=("eri_tile",)):
+    """One CC call with every launch count set to 0 just before and read
+    just after, the peak device memory reset before; fails unless each
+    kernel in ``used`` was launched and the amplitudes converged. Prints the
+    run by part. Returns (output, launches, peak bytes, wall s)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    tm = res.timings
+    per_it = tm["cc_s"] / max(res.iterations, 1)
+    print(f"{label}: E_corr {res.correlation_energy:.12f}, (T) {res.triples_correction}, total "
+          f"{res.total_energy():.10f}, {res.iterations} CC iterations, converged {res.converged}; "
+          f"wall {wall:.4f} s (eri_s {tm['eri_s']:.4f}, blocks_s {tm['blocks_s']:.4f}, cc_s "
+          f"{tm['cc_s']:.4f} = {res.iterations} x {per_it:.4f}, triples_s {tm['triples_s']:.4f}); "
+          f"peak device memory {peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    if not res.converged:
+        fail(f"{label} did not converge")
+    missing = [name for name in used if launches[name] == 0]
+    if missing:
+        fail(f"{label} bypassed {missing}: {launches}")
+    return res, launches, peak, wall
+
+
+def benzene_ccsd_t(Q, kernels: dict, paths: dict):
+    """The headline: benzene/cc-pVDZ RHF (in core, SAD, diag_rms 1e-10)
+    then spatial CCSD(T), frozen 0 and "auto", in core and in pair space;
+    the first (RHF and CCSD(T) frozen 0 in core) is the main path, driven
+    with the counts set to 0 before the SCF. Gates: in core - pair within
+    1e-9 Eh for CCSD and (T); iteration 0 equals the port's MP2 on the same
+    output within 1e-10; a second in-core run gives equal bits. Returns the
+    system, config and SCF output."""
+    from qchem_rs_tpu_torch.models.cc import ccsd
+
+    system = load_system(Q, "benzene")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+    torch.cuda.synchronize()
+    scf_wall = time.perf_counter() - t0
+    head = ccsd(system, cfg, triples=True, output=out, device="cuda")
+    torch.cuda.synchronize()
+    launches = launches_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    tm = head.timings
+    print(f"benzene/cc-pVDZ RHF + CCSD(T) (main path): SCF {out.iterations} iterations, "
+          f"E_SCF {out.total_energy():.10f}, SCF wall {scf_wall:.4f} s (guess_s "
+          f"{out.timings.get('guess_s', 0.0):.4f}, eri_s {out.timings['eri_s']:.4f}, scf_s "
+          f"{out.timings['scf_s']:.4f}); CCSD(T) total_s {tm['total_s']:.4f}; peak device memory "
+          f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+    if not (out.converged and head.converged):
+        fail("the benzene/cc-pVDZ RHF + CCSD(T) main path did not converge")
+    if not all(v > 0 for k, v in launches.items() if k in ("eri_tile", "fock_matvec")):
+        fail(f"the benzene RHF + CCSD(T) main path bypassed a kernel: {launches}")
+    paths["rhf + ccsd(t) benzene incore sad"] = dict(launches, peak_bytes=peak,
+                                                      scf_s=scf_wall, **tm)
+    runs = {}
+    for frozen in (0, "auto"):
+        mp2 = Q.mp2(system, cfg, frozen=frozen, output=out, device="cuda").correlation_energy
+        for mode in ("incore", "pair"):
+            run_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad",
+                                          fock_mode=mode)
+            label = f"CCSD(T) benzene/cc-pVDZ {mode} frozen {frozen}"
+            res, launches, peak, wall = drive_cc(
+                kernels, label, lambda: ccsd(system, run_cfg, frozen=frozen, triples=True,
+                                             output=out, device="cuda"))
+            paths[f"ccsd(t) benzene {mode} frozen {frozen}"] = dict(
+                launches, peak_bytes=peak, wall_s=wall, iterations=res.iterations, **res.timings)
+            runs[mode, frozen] = res
+        gate(f"benzene frozen {frozen}: CCSD iteration 0 - MP2",
+             runs["incore", frozen].mp2_correlation_energy - mp2, 1e-10)
+        for part in ("correlation_energy", "triples_correction"):
+            gate(f"benzene frozen {frozen}: {part} in core - pair",
+                 getattr(runs["incore", frozen], part) - getattr(runs["pair", frozen], part), 1e-9)
+    again = ccsd(system, cfg, triples=True, output=out, device="cuda")
+    same = (again.correlation_energy == runs["incore", 0].correlation_energy
+            and again.triples_correction == runs["incore", 0].triples_correction
+            and again.iterations == runs["incore", 0].iterations
+            and head.correlation_energy == again.correlation_energy)
+    print(f"CCSD(T) benzene/cc-pVDZ in core three times: energy bits equal {same}", flush=True)
+    if not same:
+        fail("two benzene CCSD(T) runs on the same inputs differ")
+    return system, cfg, out
+
+
+def water_ccsd_t(Q, kernels: dict, paths: dict) -> None:
+    """Water/cc-pVDZ CCSD(T): spatial against spinorbital within 1e-10,
+    the batched (T) against the full-tensor form within 1e-12, and within
+    1e-9 of the JAX package's value on the CPU."""
+    from qchem_rs_tpu_torch.models import cc
+
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
+    out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+    res = {}
+    for form in ("spatial", "spinorbital"):
+        res[form], launches, peak, _ = drive_cc(
+            kernels, f"CCSD(T) water/cc-pVDZ {form}",
+            lambda: cc.ccsd(system, cfg, triples=True, cc_epsilon=1e-10, formulation=form,
+                            output=out, device="cuda"))
+        paths[f"ccsd(t) water {form}"] = dict(launches, peak_bytes=peak, **res[form].timings)
+    sp, so = res["spatial"], res["spinorbital"]
+    gate("water CCSD spatial - spinorbital", sp.correlation_energy - so.correlation_energy, 1e-10)
+    gate("water (T) spatial - spinorbital", sp.triples_correction - so.triples_correction, 1e-10)
+    gate("water CCSD(T) total - JAX anchor", sp.total_energy() - WATER_CCSD_T_E, 1e-9)
+    gate("water CCSD correlation - JAX anchor", sp.correlation_energy - WATER_CCSD_CORR, 1e-9)
+    gate("water (T) - JAX anchor", sp.triples_correction - WATER_CCSD_T, 1e-9)
+    nocc = system.n_electrons() // 2
+    C = torch.as_tensor(out.coefficients, device="cuda")
+    eps = torch.as_tensor(out.orbital_energies, device="cuda")
+    g = cc._mo_phys_blocks(cc._incore_e4(system, cfg, torch.device("cuda")), C[:, :nocc],
+                           C[:, nocc:])
+    _, (t1, T, *_rest) = cc.spatial_amplitudes(g, eps[:nocc], eps[nocc:], 100, 1e-10)
+    full = float(cc._triples_energy_rhf(t1, T, eps[:nocc], eps[nocc:], g))
+    batched = float(cc._triples_energy_rhf_batched(t1, T, eps[:nocc], eps[nocc:], g))
+    gate("water (T) batched - full", batched - full, 1e-12)
+
+
+def uccsd_t(Q, kernels: dict, paths: dict) -> None:
+    """UCCSD(T) on OH/6-31G (doublet) and O2/6-31G (triplet) on UHF at
+    diag_rms 1e-12, the card against the port on the CPU (same UHF)."""
+    from qchem_rs_tpu_torch.models.cc import ccsd
+
+    for mol, mult in (("hydroxyl", 2), ("oxygen", 3)):
+        system = load_system(Q, mol, "6-31G")
+        cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=600, spin_multiplicity=mult)
+        out = Q.unrestricted_hartree_fock(system, cfg, device="cuda")
+        if not out.converged:
+            fail(f"UHF {mol}/6-31G at 1e-12 did not converge")
+        res, launches, peak, _ = drive_cc(
+            kernels, f"UCCSD(T) {mol}/6-31G multiplicity {mult}",
+            lambda: ccsd(system, cfg, triples=True, cc_epsilon=1e-10, output=out, device="cuda"))
+        paths[f"uccsd(t) {mol}"] = dict(launches, peak_bytes=peak, **res.timings)
+        t0 = time.perf_counter()
+        cpu = ccsd(system, cfg, triples=True, cc_epsilon=1e-10, output=out, device="cpu")
+        print(f"UCCSD(T) {mol}/6-31G on the CPU: {time.perf_counter() - t0:.2f} s", flush=True)
+        if not (res.correlation_energy < 0.0 and res.mp2_correlation_energy < 0.0
+                and res.triples_correction < 0.0):
+            fail(f"UCCSD(T) {mol}/6-31G: a correlation energy is not negative: {res}")
+        gate(f"UCCSD(T) {mol}/6-31G card - CPU", res.total_energy() - cpu.total_energy(), 1e-10)
+
+
+def timed(label: str, fn):
+    """``fn()`` with its wall time and peak device memory printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"{label}: wall {time.perf_counter() - t0:.4f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    return out
+
+
+def cis_runs(Q, kernels: dict, paths: dict, naphthalene, benzene) -> None:
+    """CIS on naphthalene/cc-pVDZ (pair mode, Davidson: no*nv = 5304) against
+    in-core Davidson within 1e-7; dense TDHF singlets and triplets on
+    benzene/cc-pVDZ; UCIS on O2/6-31G against the CPU."""
+    from qchem_rs_tpu_torch.models.cis import cis, ucis
+
+    system, cfg, out = naphthalene
+    w = {}
+    for mode in ("pair", "incore"):
+        run_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200, fock_mode=mode,
+                                      initial_guess="sad")
+        reset(kernels)
+        res = timed(f"CIS naphthalene/cc-pVDZ {mode} Davidson, 5 singlets",
+                    lambda: cis(system, run_cfg, nstates=5, output=out, device="cuda"))
+        launches = launches_of(kernels)
+        print(f"  excitation energies {res.excitation_energies}, f {res.oscillator_strengths}, "
+              f"launches {launches}", flush=True)
+        if launches["eri_tile"] == 0:
+            fail(f"CIS naphthalene {mode} did not launch kernel 1")
+        paths[f"cis naphthalene {mode} davidson"] = launches
+        w[mode] = res.excitation_energies
+    gate("CIS naphthalene pair - in core (Davidson)", float(np.max(np.abs(w["pair"] - w["incore"]))),
+         1e-7)
+    system, cfg, out = benzene
+    for triplet in (False, True):
+        res = timed(f"TDHF benzene/cc-pVDZ dense {'triplets' if triplet else 'singlets'}",
+                    lambda: cis(system, cfg, nstates=5, tdhf=True, triplet=triplet, output=out,
+                                device="cuda"))
+        w = res.excitation_energies
+        print(f"  excitation energies {w}, f {res.oscillator_strengths}", flush=True)
+        # RHF benzene is singlet-stable (A - B positive definite, else cis
+        # raises) but triplet-unstable: the lowest triplet omega^2 is
+        # negative and its omega prints as 0, as in the JAX package
+        if not (np.all(np.isfinite(w)) and np.all(np.diff(w) >= 0) and w[0] >= 0.0
+                and (triplet or w[0] > 0.0)):
+            fail(f"TDHF benzene roots out of order: {w}")
+    system = load_system(Q, "oxygen", "6-31G")
+    cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=600, spin_multiplicity=3)
+    out = Q.unrestricted_hartree_fock(system, cfg, device="cuda")
+    res = timed("UCIS O2/6-31G triplet dense", lambda: ucis(system, cfg, output=out, device="cuda"))
+    cpu = ucis(system, cfg, output=out, device="cpu")
+    print(f"  excitation energies {res.excitation_energies}", flush=True)
+    gate("UCIS O2/6-31G card - CPU",
+         float(np.max(np.abs(res.excitation_energies - cpu.excitation_energies))), 1e-8)
+
+
+def fci_water(Q) -> None:
+    """FCI on water/STO-3G (441 determinants): the card against the CPU."""
+    from qchem_rs_tpu_torch.models.fci import fci
+
+    system = load_system(Q, "water", "STO-3G")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
+    card = timed("FCI water/STO-3G", lambda: fci(system, cfg, nroots=3, device="cuda"))
+    cpu = fci(system, cfg, nroots=3, device="cpu")
+    print(f"  {card.dimension} determinants, roots {card.total_energies}", flush=True)
+    gate("FCI water/STO-3G card - CPU",
+         float(np.max(np.abs(card.total_energies - cpu.total_energies))), 1e-10)
+
+
+def eom_runs(Q, kernels: dict, paths: dict) -> None:
+    """EOM-CCSD: matrix-free spatial on benzene/cc-pVDZ (3 singlets);
+    spinorbital on water/cc-pVDZ, right and left (within 1e-6); on
+    water/STO-3G the determinant tier against the matrix-free tier (within
+    1e-6), IP and EA against the CPU, and the matrix-free transition moments
+    against the determinant-space properties."""
+    from qchem_rs_tpu_torch.models import eom
+
+    system = load_system(Q, "benzene")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad")
+    reset(kernels)
+    res = timed("EOM-EE-CCSD benzene/cc-pVDZ matrix-free spatial, 3 singlets",
+                lambda: eom.eom_ccsd_davidson(system, cfg, nstates=3, formulation="spatial",
+                                              device="cuda"))
+    launches = launches_of(kernels)
+    paths["eom benzene spatial"] = launches
+    print(f"  excitation energies {res.excitation_energies} Eh, {res.cc_iterations} CC "
+          f"iterations, amplitude space {res.dimension}, launches {launches}", flush=True)
+    if not (np.all(np.diff(res.excitation_energies) >= 0) and 0 < res.excitation_energies[0] < 1):
+        fail(f"EOM benzene roots out of range: {res.excitation_energies}")
+
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
+    res = timed("EOM-EE-CCSD water/cc-pVDZ matrix-free spinorbital, right and left",
+                lambda: eom.eom_ccsd_davidson(system, cfg, nstates=3, left=True, device="cuda"))
+    print(f"  right {res.excitation_energies}, left {res.left_excitation_energies}", flush=True)
+    gate("EOM water/cc-pVDZ left - right",
+         float(np.max(np.abs(res.left_excitation_energies - res.excitation_energies))), 1e-6)
+
+    system = load_system(Q, "water", "STO-3G")
+    det = timed("EOM-CCSD water/STO-3G determinant tier",
+                lambda: eom.eom_ccsd(system, cfg, nstates=4, device="cuda"))
+    mf = eom.eom_ccsd_davidson(system, cfg, nstates=4, tol=1e-7, device="cuda")
+    gate("EOM water/STO-3G determinant - matrix-free",
+         float(np.max(np.abs(det.excitation_energies - mf.excitation_energies))), 1e-6)
+    for kind in ("ip", "ea"):
+        fn = getattr(eom, f"{kind}_eom_ccsd")
+        card, cpu = fn(system, cfg, device="cuda"), fn(system, cfg, device="cpu")
+        print(f"  {kind}: {card.energies}", flush=True)
+        gate(f"{kind.upper()}-EOM water/STO-3G card - CPU",
+             float(np.max(np.abs(card.energies - cpu.energies))), 1e-8)
+    props = eom.eom_ccsd_properties(system, cfg, nstates=4, cc_epsilon=1e-11, device="cuda")
+    tm = timed("EOM-CCSD water/STO-3G matrix-free transition moments",
+               lambda: eom.eom_ccsd_transition_moments(system, cfg, nstates=4, tol=1e-8,
+                                                       cc_epsilon=1e-11, device="cuda"))
+    print(f"  f {tm.oscillator_strengths} (determinant tier {props.oscillator_strengths})",
+          flush=True)
+    gate("EOM transition moments: oscillator strengths - determinant tier",
+         float(np.max(np.abs(tm.oscillator_strengths - props.oscillator_strengths))), 1e-5)
+    gate("EOM transition moments: ground-state dipole - determinant tier",
+         float(np.max(np.abs(tm.ground_state_dipole - props.ground_state_dipole))), 1e-6)
+
+
+def cc_dipoles(Q) -> None:
+    """ccsd_dipole and ccsd_relaxed_dipole on water/cc-pVDZ; the relaxed z
+    component within 1e-5 a.u. of the central difference of CCSD total
+    energies in a field of +-1e-4 z (the SCF re-converged in each)."""
+    import dataclasses
+
+    from qchem_rs_tpu_torch.models.cc import ccsd
+    from qchem_rs_tpu_torch.models.cc_lambda import ccsd_dipole
+    from qchem_rs_tpu_torch.models.cc_relaxed import ccsd_relaxed_dipole
+
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-11, max_iterations=300)
+    unrel = timed("CCSD dipole (unrelaxed) water/cc-pVDZ",
+                  lambda: ccsd_dipole(system, cfg, device="cuda"))
+    rel = timed("CCSD dipole (relaxed) water/cc-pVDZ",
+                lambda: ccsd_relaxed_dipole(system, cfg, device="cuda"))
+    h = 1e-4
+    e = [ccsd(system, dataclasses.replace(cfg, electric_field=(0.0, 0.0, s * h)), cc_epsilon=1e-11,
+              device="cuda").total_energy() for s in (1, -1)]
+    mu_fd = -(e[0] - e[1]) / (2 * h)
+    print(f"  unrelaxed {unrel.ccsd_dipole}, relaxed {rel.ccsd_dipole}, scf {rel.scf_dipole}, "
+          f"finite field z {mu_fd:.8f}, z residual {rel.z_residual:.2e}", flush=True)
+    gate("unrelaxed dipole: the two entry points' values",
+         float(np.max(np.abs(unrel.ccsd_dipole - rel.ccsd_dipole_unrelaxed))), 1e-10)
+    gate("relaxed dipole z - finite field", rel.ccsd_dipole[2] - mu_fd, 1e-5)
+
+
+def cli_ccsd() -> None:
+    """The CLI's ccsd --triples on water/cc-pVDZ as a subprocess: exit 0 and
+    the anchor's CCSD(T) total energy to its printed digits."""
+    cmd = [sys.executable, "-m", "qchem_rs_tpu_torch.cli", "ccsd", "-b", "data/basis/cc-pVDZ.json",
+           "-m", "data/mol/water.json", "--epsilon", "1e-10", "--triples"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"CLI {' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in proc.stdout.splitlines():
+        print(f"  {line}", flush=True)
+    want = [f"ccsd total energy: {WATER_CCSD_T_E:3.6f}", f"(t) correction: {WATER_CCSD_T:3.6f}"]
+    if proc.returncode != 0 or not all(w in proc.stdout.splitlines() for w in want):
+        fail(f"the CLI's ccsd did not print {want}: {proc.stderr[-2000:]}")
 
 
 def main(argv: list[str]) -> int:
@@ -1140,14 +1493,28 @@ def main(argv: list[str]) -> int:
 
     # 8. the SCF options at full size, MP2 in both ERI forms, the CLI
     water_field(Q, named, paths)
-    mp2_runs(Q, named, paths)
+    naphthalene = mp2_runs(Q, named, paths)
     cli_mp2()
+
+    # 9. the correlated tier past MP2: CCSD(T), UCCSD(T), CIS/TDHF/UCIS, FCI,
+    # EOM-CCSD, CC dipoles and the CLI's ccsd
+    benzene_hf = benzene_ccsd_t(Q, named, paths)
+    water_ccsd_t(Q, named, paths)
+    uccsd_t(Q, named, paths)
+    cis_runs(Q, named, paths, naphthalene, benzene_hf)
+    fci_water(Q)
+    eom_runs(Q, named, paths)
+    cc_dipoles(Q)
+    cli_ccsd()
+    post_hf_launches = paths["rhf + ccsd(t) benzene incore sad"]
     print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "eri_tile", "route": "cuda", "source": "qchem_rs_tpu_torch/csrc/eri_tile.cu",
          "replaces": "qchem_rs_tpu/ops/eri_pallas.py:205", "launches": launches["eri_tile"],
-         "launches_per_run": launches["eri_tile"], "max_abs_err": max(k1_abs, k1["max_abs_err"]),
+         "launches_per_run": launches["eri_tile"],
+         "launches_rhf_ccsd_t": post_hf_launches["eri_tile"],
+         "max_abs_err": max(k1_abs, k1["max_abs_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "eri_tile_highl", "route": "cuda",
@@ -1161,7 +1528,8 @@ def main(argv: list[str]) -> int:
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],
-         "launches_per_run": launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
+         "launches_per_run": launches["fock_matvec"],
+         "launches_rhf_ccsd_t": post_hf_launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]}), flush=True)

@@ -12,14 +12,19 @@ whose Coulomb product is kernel 2; the integral-direct
 SAD guess, level shifting and uniform external fields; the dipole moment,
 Mulliken charges and <S^2> (``models/properties.py``); SCF checkpoints
 (``utils/checkpoint.py``, the JAX package's ``.npz`` keys); MP2 and UMP2
-in core and in pair space (``models/mp2.py``); and the ``rhf``, ``uhf``,
-``mp2`` and ``info`` subcommands of the CLI. Everything is float64, and
-the SCF repeats bit for bit on the same inputs.
+in core and in pair space (``models/mp2.py``); the correlated tier past
+it: CCSD(T) and UCCSD(T) (``models/cc.py``), CIS/TDHF/UCIS
+(``models/cis.py``), FCI (``models/fci.py``), EOM-CCSD (``models/eom.py``)
+and the CC Lambda and relaxed dipoles (``models/cc_lambda.py``,
+``models/cc_relaxed.py``); and the ``rhf``, ``uhf``, ``mp2``, ``ccsd``,
+``fci``, ``eom``, ``cis`` and ``info`` subcommands of the CLI. Everything
+is float64, and the SCF and CCSD(T) repeat bit for bit on the same inputs.
 Every entry point takes an explicit ``device``; CPU tensors run each
 kernel's plain PyTorch twin. The package never imports JAX.
 """
 
 from qchem_rs_tpu_torch.config import HartreeFockConfig
+from qchem_rs_tpu_torch.models.cis import cis, ucis
 from qchem_rs_tpu_torch.models.mp2 import Mp2Output, mp2, mp2_pair_space, ump2, ump2_pair_space
 from qchem_rs_tpu_torch.models.properties import dipole_moment, mulliken_charges, spin_expectation
 from qchem_rs_tpu_torch.models.rhf import RestrictedHartreeFockOutput, restricted_hartree_fock
@@ -37,12 +42,14 @@ __all__ = [
     "RestrictedHartreeFockOutput",
     "ScfCheckpoint",
     "UnrestrictedHartreeFockOutput",
+    "cis",
     "dipole_moment",
     "mp2",
     "mp2_pair_space",
     "mulliken_charges",
     "restricted_hartree_fock",
     "spin_expectation",
+    "ucis",
     "ump2",
     "ump2_pair_space",
     "unrestricted_hartree_fock",

@@ -1,5 +1,6 @@
-"""Command-line interface of the port: the ``rhf``, ``uhf``, ``mp2`` and
-``info`` subcommands of ``qchem_rs_tpu/cli.py``.
+"""Command-line interface of the port: the ``rhf``, ``uhf``, ``mp2``,
+``ccsd``, ``fci``, ``eom``, ``cis`` and ``info`` subcommands of
+``qchem_rs_tpu/cli.py``.
 
     python -m qchem_rs_tpu_torch.cli rhf -b data/basis/cc-pVDZ.json \\
         -m data/mol/naphthalene.json --epsilon 1e-8 --fock-mode pair --guess sad
@@ -9,6 +10,12 @@
         -m data/mol/water.json --dipole --mulliken --field 0 0 0.001
     python -m qchem_rs_tpu_torch.cli mp2 -b data/basis/cc-pVDZ.json \\
         -m data/mol/water.json --epsilon 1e-10 --frozen-core auto
+    python -m qchem_rs_tpu_torch.cli ccsd -b data/basis/cc-pVDZ.json \\
+        -m data/mol/water.json --epsilon 1e-10 --triples
+    python -m qchem_rs_tpu_torch.cli cis -b data/basis/cc-pVDZ.json \\
+        -m data/mol/naphthalene.json --fock-mode pair --nstates 5
+    python -m qchem_rs_tpu_torch.cli eom -b data/basis/STO-3G.json \\
+        -m data/mol/water.json --matrix-free --formulation spatial
     python -m qchem_rs_tpu_torch.cli info -b data/basis/6-31G.json -m data/mol/methane.json
 
 Every SCF subcommand takes the JAX CLI's common flags (``--charge``,
@@ -228,6 +235,186 @@ def cmd_mp2(args) -> int:
     return 0
 
 
+def _open_shell(system, cfg) -> bool:
+    return cfg.spin_multiplicity not in (0, 1) or system.n_electrons(cfg.charge) % 2 == 1
+
+
+def _print_vector(label: str, mu, tail: str) -> None:
+    print(f"{label} [{mu[0]: .6f}, {mu[1]: .6f}, {mu[2]: .6f}]  {tail}")
+
+
+def cmd_ccsd(args) -> int:
+    import numpy as np
+
+    from qchem_rs_tpu_torch.models.cc import ccsd
+
+    system, cfg, device = _build(args)
+    open_shell = _open_shell(system, cfg)
+    if cfg.spin_multiplicity == 0 and not open_shell:
+        cfg = dataclasses.replace(cfg, spin_multiplicity=1)
+    frozen = args.frozen_core if args.frozen_core == "auto" else int(args.frozen_core)
+    start = time.perf_counter()
+    try:
+        res = ccsd(system, cfg, frozen=frozen, triples=args.triples, cc_epsilon=args.cc_epsilon,
+                   device=device)
+    except (RuntimeError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    elapsed = time.perf_counter() - start
+    if not res.converged:
+        print("ccsd amplitudes did not converge", file=sys.stderr)
+        return 1
+    kind = "uccsd" if open_shell else "ccsd"
+    print(f"{kind} converged after {res.iterations} CC iterations "
+          f"({res.scf_iterations} SCF) and {elapsed:0.2f}s")
+    print(f"hartree fock energy: {res.scf_total_energy:3.6f}")
+    print(f"mp2 correlation energy: {res.mp2_correlation_energy:3.6f}")
+    print(f"ccsd correlation energy: {res.correlation_energy:3.6f}")
+    if res.triples_correction is not None:
+        print(f"(t) correction: {res.triples_correction:3.6f}")
+    print(f"{kind} total energy: {res.total_energy():3.6f}")
+    if args.dipole and not open_shell:
+        if args.relaxed:
+            from qchem_rs_tpu_torch.models.cc_relaxed import ccsd_relaxed_dipole
+
+            p = ccsd_relaxed_dipole(system, cfg, cc_epsilon=args.cc_epsilon, device=device)
+            d, du = float(np.linalg.norm(p.ccsd_dipole)), float(np.linalg.norm(p.ccsd_dipole_unrelaxed))
+            _print_vector("ccsd dipole (relaxed, a.u.):", p.ccsd_dipole,
+                          f"|mu| = {d:.6f} (unrelaxed {du:.6f})")
+        else:
+            from qchem_rs_tpu_torch.models.cc_lambda import ccsd_dipole
+
+            p = ccsd_dipole(system, cfg, cc_epsilon=args.cc_epsilon, device=device)
+            d, ds = float(np.linalg.norm(p.ccsd_dipole)), float(np.linalg.norm(p.scf_dipole))
+            _print_vector("ccsd dipole (unrelaxed, a.u.):", p.ccsd_dipole,
+                          f"|mu| = {d:.6f} (scf {ds:.6f})")
+    return 0
+
+
+def cmd_fci(args) -> int:
+    from qchem_rs_tpu_torch.models.fci import fci
+
+    system, cfg, device = _build(args)
+    if cfg.spin_multiplicity == 0:
+        mult = 2 if system.n_electrons(cfg.charge) % 2 else 1
+        cfg = dataclasses.replace(cfg, spin_multiplicity=mult)
+    start = time.perf_counter()
+    try:
+        res = fci(system, cfg, nroots=args.nroots, max_dim=args.max_dim, orbitals=args.orbitals,
+                  device=device)
+    except (RuntimeError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    elapsed = time.perf_counter() - start
+    print(f"fci solved: {res.dimension} determinants ({res.n_alpha}a, {res.n_beta}b) "
+          f"in {elapsed:0.2f}s")
+    if res.scf_total_energy is not None:
+        print(f"hartree fock energy: {res.scf_total_energy:3.6f}")
+        print(f"fci correlation energy: {res.correlation_energy():3.6f}")
+    for k, e in enumerate(res.total_energies):
+        print(f"fci root {k} total energy: {e:3.6f}")
+    return 0
+
+
+def _print_states(energies, strengths=None) -> None:
+    from qchem_rs_tpu_torch.models.eom import HARTREE_TO_EV
+
+    for i, w in enumerate(energies, start=1):
+        line = f"state {i}: {w:0.6f} Eh  {w * HARTREE_TO_EV:8.4f} eV"
+        print(line if strengths is None else f"{line}  f = {strengths[i - 1]:0.6f}")
+
+
+def cmd_eom(args) -> int:
+    from qchem_rs_tpu_torch.models import eom
+
+    system, cfg, device = _build(args)
+    if cfg.spin_multiplicity == 0:
+        cfg = dataclasses.replace(cfg, spin_multiplicity=1)
+    start = time.perf_counter()
+    try:
+        if args.ip or args.ea:
+            fn = eom.ip_eom_ccsd if args.ip else eom.ea_eom_ccsd
+            res = fn(system, cfg, nstates=args.nstates, max_dim=args.max_dim, device=device)
+            elapsed = time.perf_counter() - start
+            label = "ionization potentials" if args.ip else "electron affinities"
+            print(f"{res.kind}-eom-ccsd finished in {elapsed:0.2f}s ({res.dimension} determinants)")
+            print(f"ccsd total energy: {res.ccsd_total_energy:3.6f}")
+            print(f"koopmans estimate: {res.koopmans:0.6f} Eh  "
+                  f"{res.koopmans * eom.HARTREE_TO_EV:8.4f} eV")
+            print(f"{label}:")
+            _print_states(res.energies)
+            return 0
+        if args.oscillator_strengths:
+            if args.matrix_free:
+                res = eom.eom_ccsd_transition_moments(system, cfg, nstates=args.nstates,
+                                                      device=device)
+                what = f"amplitude space {res.dimension}"
+            else:
+                res = eom.eom_ccsd_properties(system, cfg, nstates=args.nstates,
+                                              max_dim=args.max_dim, device=device)
+                what = f"{res.dimension} determinants"
+            elapsed = time.perf_counter() - start
+            print(f"eom-ccsd properties finished in {elapsed:0.2f}s ({what})")
+            print(f"hartree fock energy: {res.scf_total_energy:3.6f}")
+            print(f"ccsd total energy: {res.ccsd_total_energy:3.6f}")
+            gs = res.ground_state_dipole
+            print(f"ccsd dipole moment (a.u.): [{gs[0]:0.6f}, {gs[1]:0.6f}, {gs[2]:0.6f}]")
+            _print_states(res.excitation_energies, res.oscillator_strengths)
+            return 0
+        if args.matrix_free:
+            res = eom.eom_ccsd_davidson(system, cfg, nstates=args.nstates,
+                                        formulation=args.formulation, device=device)
+        else:
+            res = eom.eom_ccsd(system, cfg, nstates=args.nstates, max_dim=args.max_dim,
+                               device=device)
+    except (RuntimeError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    elapsed = time.perf_counter() - start
+    if args.matrix_free:
+        print(f"eom-ccsd (matrix-free {args.formulation}) finished after {res.cc_iterations} CC "
+              f"iterations and {elapsed:0.2f}s (amplitude space {res.dimension})")
+    else:
+        print(f"eom-ccsd finished after {res.cc_iterations} CC iterations and {elapsed:0.2f}s "
+              f"({res.dimension} of {res.fci_dimension} determinants in the rank<=2 space)")
+    print(f"hartree fock energy: {res.scf_total_energy:3.6f}")
+    print(f"ccsd total energy: {res.ccsd_total_energy:3.6f}")
+    _print_states(res.excitation_energies)
+    return 0
+
+
+def cmd_cis(args) -> int:
+    from qchem_rs_tpu_torch.models.cis import cis, ucis
+
+    system, cfg, device = _build(args)
+    open_shell = _open_shell(system, cfg)
+    start = time.perf_counter()
+    try:
+        if open_shell:
+            if args.triplet or args.tdhf:
+                print("--triplet/--tdhf apply to closed-shell references only "
+                      "(open shells run spin-orbital UCIS)", file=sys.stderr)
+                return 2
+            res = ucis(system, cfg, nstates=args.nstates, device=device)
+        else:
+            if cfg.spin_multiplicity == 0:
+                cfg = dataclasses.replace(cfg, spin_multiplicity=1)
+            res = cis(system, cfg, nstates=args.nstates, triplet=args.triplet, tdhf=args.tdhf,
+                      solver=args.solver, device=device)
+    except (RuntimeError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    elapsed = time.perf_counter() - start
+    if res.method == "ucis":
+        label = "ucis (spin-orbital)"
+    else:
+        label = f"{res.method} ({'triplet' if res.triplet else 'singlet'})"
+    print(f"{label} finished after {res.iterations} SCF iterations and {elapsed:0.2f}s")
+    print(f"hartree fock energy: {res.scf_total_energy:3.6f}")
+    _print_states(res.excitation_energies, res.oscillator_strengths)
+    return 0
+
+
 def cmd_info(args) -> int:
     system = _system(args, spherical=False)
     print(f"MolecularSystem({len(system.atoms)} atoms, {len(system.shells)} shells, "
@@ -285,10 +472,16 @@ def _common_flags(p: argparse.ArgumentParser, uhf: bool) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
+def _frozen_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--frozen-core", default="0", metavar="N|auto",
+                   help="core spatial orbitals excluded from correlation: an integer or 'auto' "
+                   "(1s for Li-Ne, 1s2s2p for Na-Ar)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="qchem_rs_tpu_torch",
-        description="Hartree-Fock and MP2 on PyTorch + CUDA (port of qchem_rs_tpu)",
+        description="Hartree-Fock and correlated methods on PyTorch + CUDA (port of qchem_rs_tpu)",
     )
     parser.add_argument("--verbose", "-v", action="store_true", help="per-iteration SCF logging")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -301,10 +494,59 @@ def main(argv=None) -> int:
     p = sub.add_parser("mp2", help="MP2 correlation energy (restricted; spin-unrestricted UMP2 "
                        "for open shells)")
     _common_flags(p, uhf=True)
-    p.add_argument("--frozen-core", default="0", metavar="N|auto",
-                   help="core spatial orbitals excluded from correlation: an integer or 'auto' "
-                   "(1s for Li-Ne, 1s2s2p for Na-Ar)")
+    _frozen_flag(p)
     p.set_defaults(fn=cmd_mp2)
+    p = sub.add_parser("ccsd", help="CCSD / CCSD(T) correlation energy (closed shells on RHF, "
+                       "open shells on UHF references)")
+    _common_flags(p, uhf=True)
+    _frozen_flag(p)
+    p.add_argument("--triples", action="store_true", help="add the perturbative (T) correction")
+    p.add_argument("--cc-epsilon", type=float, default=1e-8,
+                   help="amplitude RMS / |dE| convergence threshold")
+    # --dipole (of _common_flags) reports the unrelaxed CC dipole here
+    p.add_argument("--relaxed", action="store_true",
+                   help="with --dipole: orbital-relaxed dipole via the z-vector method")
+    p.set_defaults(fn=cmd_ccsd)
+    p = sub.add_parser("fci", help="determinant full CI for small systems (exact within the "
+                       "basis; the correlation-tier anchor)")
+    _common_flags(p, uhf=True)
+    p.add_argument("--nroots", type=int, default=1, help="number of FCI roots to report")
+    p.add_argument("--max-dim", type=int, default=4000,
+                   help="determinant-space cap for the dense eigensolve tier")
+    p.add_argument("--orbitals", choices=("auto", "rhf", "lowdin"), default="auto",
+                   help="orbital basis: converged RHF or Loewdin-orthogonalized AOs (FCI is "
+                   "invariant; lowdin needs no SCF and works for open shells)")
+    p.set_defaults(fn=cmd_fci)
+    p = sub.add_parser("eom", help="EOM-CCSD excitation energies (closed shells)")
+    _common_flags(p, uhf=False)
+    p.add_argument("--nstates", type=int, default=5, help="number of excited states")
+    p.add_argument("--max-dim", type=int, default=4000,
+                   help="determinant-space cap (same tier as fci)")
+    p.add_argument("--ip", action="store_true",
+                   help="ionization potentials (IP-EOM: 1h + 2h1p sector)")
+    p.add_argument("--ea", action="store_true",
+                   help="electron affinities (EA-EOM: 1p + 2p1h sector)")
+    p.add_argument("--oscillator-strengths", action="store_true",
+                   help="biorthogonal transition dipoles and length-gauge oscillator strengths "
+                   "plus the CCSD ground-state dipole")
+    p.add_argument("--matrix-free", action="store_true",
+                   help="Davidson over jvp sigma vectors (no determinant space)")
+    p.add_argument("--formulation", choices=("spinorbital", "spatial"), default="spinorbital",
+                   help="matrix-free sigma path: spinorbital (all Ms=0 roots) or the spatial "
+                   "fast path (singlet roots only)")
+    p.set_defaults(fn=cmd_eom)
+    p = sub.add_parser("cis", help="CIS / TDHF excitation energies (closed shells; open shells "
+                       "run spin-orbital UCIS on the UHF reference; --fock-mode pair avoids the "
+                       "n^4 AO tensor)")
+    _common_flags(p, uhf=True)
+    p.add_argument("--nstates", type=int, default=5, help="number of excited states")
+    p.add_argument("--triplet", action="store_true", help="triplet excitations")
+    p.add_argument("--tdhf", action="store_true",
+                   help="full TDHF/RPA instead of the CIS (Tamm-Dancoff) problem")
+    p.add_argument("--solver", choices=("auto", "dense", "davidson"), default="auto",
+                   help="CIS eigensolver: dense diagonalization or implicit-sigma Davidson "
+                   "(auto switches to davidson past no*nv = 4096)")
+    p.set_defaults(fn=cmd_cis)
     p = sub.add_parser("info", help="inspect a molecule/basis combination")
     p.add_argument("--basis-set", "-b", required=True)
     p.add_argument("--molecule", "-m", required=True)

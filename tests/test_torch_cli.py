@@ -1,7 +1,8 @@
-"""Port parity, CLI: the port's ``rhf``, ``uhf``, ``mp2`` and ``info``
-subcommands on the CPU (``--device cpu``) against the JAX CLI run in
-process as tests/test_cli.py runs it: every printed line equal, but for the
-wall time on the first line; and the port's checkpoint, resume, trace and
+"""Port parity, CLI: the port's ``rhf``, ``uhf``, ``mp2``, ``ccsd``,
+``fci``, ``cis``, ``eom`` and ``info`` subcommands on the CPU (``--device
+cpu``) against the JAX CLI run in process as tests/test_cli.py runs it:
+every printed line equal, but for the wall time and the SCF iteration
+count on the first line; and the port's checkpoint, resume, trace and
 verbose flags."""
 
 import glob
@@ -110,3 +111,48 @@ def test_verbose_logs_every_iteration(capsys):
     rc, out = _run(cli.main, ["--verbose", "rhf", *_files("hydrogen"), "--device", "cpu"], capsys)
     n = _iterations([x for x in out if "converged" in x][0])
     assert rc == 0 and sum(x.startswith("iteration ") for x in out) == n + 1
+
+
+POST_HF = ["--epsilon", "1e-10"]
+POST_HF_CASES = {
+    "ccsd triples": ["ccsd", *_files("water"), *POST_HF, "--triples"],
+    "ccsd frozen core": ["ccsd", *_files("water"), *POST_HF, "--frozen-core", "auto"],
+    "uccsd triples (OH)": ["ccsd", *_files("hydroxyl"), "--epsilon", "1e-12", "-s", "2",
+                           "--max-iterations", "300", "--triples"],
+    "fci": ["fci", *_files("water"), *POST_HF, "--nroots", "2"],
+    "cis tdhf triplet": ["cis", *_files("water"), *POST_HF, "--tdhf", "--triplet"],
+    "cis pair davidson": ["cis", *_files("water"), *POST_HF, "--fock-mode", "pair",
+                          "--solver", "davidson"],
+    "eom": ["eom", *_files("water"), *POST_HF],
+    "eom ip": ["eom", *_files("water"), *POST_HF, "--ip"],
+    "eom matrix-free spatial": ["eom", *_files("water"), *POST_HF, "--matrix-free",
+                                "--formulation", "spatial", "--nstates", "2"],
+    "eom ea": ["eom", *_files("water"), *POST_HF, "--ea"],
+    "eom oscillator strengths": ["eom", *_files("water"), *POST_HF, "--oscillator-strengths",
+                                 "--nstates", "4"],
+    "ucis (OH)": ["cis", *_files("hydroxyl"), "--epsilon", "1e-12", "-s", "2",
+                  "--max-iterations", "300"],
+}
+
+
+def _unsigned_zeros(line):
+    """A printed negative zero ("-0.000000", a value of order 1e-16 on
+    either side of 0) read as zero, its padding with it."""
+    return " ".join(re.sub(r"(?<![\d.])-(0\.0+)(?!\d)", r" \1", line).split())
+
+
+def _post_hf_printed(lines):
+    """The lines with the wall time and the SCF iteration count of the
+    first line masked, and negative zeros read as zero."""
+    first = re.sub(r"\d+\.\d\ds\b", "<t>s", lines[0])
+    first = re.sub(r"(\(|after )\d+ SCF", r"\1<n> SCF", first)
+    return [first] + [_unsigned_zeros(line) for line in lines[1:]]
+
+
+@pytest.mark.parametrize("case", sorted(POST_HF_CASES))
+def test_post_hf_prints_the_jax_lines(capsys, case):
+    argv = POST_HF_CASES[case]
+    rc_ref, ref = _run(jax_cli.main, argv, capsys)
+    rc, out = _run(cli.main, argv, capsys, ("--device", "cpu"))
+    assert rc == rc_ref == 0
+    assert len(out) >= 3 and _post_hf_printed(out) == _post_hf_printed(ref)

@@ -1,7 +1,8 @@
 """Both hand-written CUDA kernels against their plain twins on the card,
 the port's RHF through them, bitwise repeats (kernel 2, the direct build's
-J and K, and whole RHF runs in each Fock mode) and MP2 on the card against
-the port on the CPU. These need an NVIDIA GPU with nvcc (the
+J and K, whole RHF runs in each Fock mode, and CCSD(T)), MP2 and CCSD(T)
+on the card against the port on the CPU, and a closed-shell CCSD step and
+(T) on seeded inputs on the card against the CPU. These need an NVIDIA GPU with nvcc (the
 kernels are built at first use) and skip elsewhere:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -267,3 +268,52 @@ def test_mp2_on_card_matches_cpu(cuda, fn):
     assert eri_kernel.KERNEL.launches > launches
     cpu = getattr(mp2, fn)(system, frozen="auto", output=out, device="cpu")
     assert abs(card.correlation_energy - cpu.correlation_energy) <= 1e-10
+
+
+def _spatial_step_inputs(device):
+    """Seeded closed-shell CC inputs (o = 4, v = 9) on ``device``: the
+    physicist blocks of a chemist-symmetric e4, amplitudes and orbital
+    energies."""
+    from qchem_rs_tpu_torch.models import cc
+
+    rng = np.random.default_rng(13)
+    no, nv = 4, 9
+    n = no + nv
+    e = rng.standard_normal((n,) * 4)
+    e = e + e.transpose(1, 0, 2, 3)
+    e = e + e.transpose(0, 1, 3, 2)
+    e = 0.05 * (e + e.transpose(2, 3, 0, 1))
+    C = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    T = rng.standard_normal((no, no, nv, nv)) * 0.05
+    host = [rng.standard_normal((no, nv)) * 0.05, T + T.transpose(1, 0, 3, 2),
+            -1.0 - rng.random(no), 0.5 + rng.random(nv)]
+    t = [torch.as_tensor(x, device=device) for x in host]
+    g = cc._mo_phys_blocks(torch.as_tensor(e, device=device), torch.as_tensor(C[:, :no], device=device),
+                           torch.as_tensor(C[:, no:], device=device))
+    return t, g
+
+
+def test_ccsd_step_and_triples_on_card_match_cpu(cuda):
+    from qchem_rs_tpu_torch.models import cc
+
+    t_card, g_card = _spatial_step_inputs(cuda)
+    t_cpu, g_cpu = _spatial_step_inputs("cpu")
+    for a, b in zip(cc._ccsd_rhf_step(*t_card, g_card), cc._ccsd_rhf_step(*t_cpu, g_cpu)):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-12
+    card = float(cc._triples_energy_rhf_batched(*t_card, g_card))
+    cpu = float(cc._triples_energy_rhf_batched(*t_cpu, g_cpu))
+    assert abs(card - cpu) <= 1e-12 * abs(cpu)
+
+
+def test_ccsd_t_twice_on_card_is_bitwise_equal(cuda):
+    from qchem_rs_tpu_torch.models.cc import ccsd
+
+    system = MolecularSystem.load(os.path.join(DATA, "mol", "water.json"),
+                                  BasisSet.load(os.path.join(DATA, "basis", "6-31G.json")))
+    out = restricted_hartree_fock(system, HartreeFockConfig(epsilon=1e-10), device=cuda)
+    a = ccsd(system, triples=True, output=out, device=cuda)
+    b = ccsd(system, triples=True, output=out, device=cuda)
+    cpu = ccsd(system, triples=True, output=out, device="cpu")
+    assert a.correlation_energy == b.correlation_energy
+    assert a.triples_correction == b.triples_correction and a.iterations == b.iterations
+    assert abs(a.total_energy() - cpu.total_energy()) <= 1e-10
