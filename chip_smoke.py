@@ -58,14 +58,24 @@ card against CPU; EOM-CCSD (matrix-free spatial on benzene, spinorbital
 left and right on water/cc-pVDZ, the determinant tier against the
 matrix-free one, IP/EA and transition moments on water/STO-3G); the
 unrelaxed and relaxed CCSD dipoles on water/cc-pVDZ against a finite
-field; and the CLI's ``ccsd --triples`` as a subprocess. Every phase
+field; and the CLI's ``ccsd --triples`` as a subprocess. Then the
+gradient and geometry tier: benzene/cc-pVDZ RHF (in core, SAD, diag_rms
+1e-10) and its analytic gradient (the main path of this tier, both
+kernels counted over it; timed by part, with the derivative integrals'
+segments and peak memory), gated by D6h symmetry, the sum over atoms, a
+central difference of the card's energy, a repeat equal in bits and the
+pair-mode gradient; UHF OH/6-31G's gradient, card against CPU; water/
+cc-pVDZ optimized, then its harmonic frequencies and thermochemistry, and
+the CLI's ``frequencies --opt-first --thermo`` as a subprocess; static
+polarizabilities of benzene (in core and pair) and naphthalene (pair);
+and the CLI's ``rhf --gradient --polarizability``. Every phase
 fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
 high-L part at the ferrocene build's; ``launches_rhf_ccsd_t`` counts the
-benzene RHF + CCSD(T) path); the last line is a JSON object naming the
-device.
+benzene RHF + CCSD(T) path, ``launches_rhf_gradient`` the benzene RHF +
+gradient path); the last line is a JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -594,9 +604,9 @@ def pair_kernel_numbers(system, density, fock_matvec) -> dict:
 def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> dict:
     """Per direct pass on naphthalene: kernel 1 against its twin on the
     first twin-sized batch of every class pair, its launches counted, and
-    the times of kernel 1, of kernel 1 with the ket contraction and of the
-    whole J/K pass (the digestion is the difference) against kernel 1's
-    bound."""
+    the times of kernel 1, of its twin over the same tiles, of kernel 1
+    with the ket contraction and of the whole J/K pass (the digestion is
+    the difference) against kernel 1's bound."""
     from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
 
     builder = StreamingFockBuilder(system, 1e-12, device="cuda")
@@ -622,6 +632,10 @@ def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> d
         for k in range(len(builder.batches)):
             builder.tile_values(k)
 
+    def plain():  # the twin over the same tiles, in its own batch sizes
+        for i1, i2, ti, tj in eng.batches(twin=True):
+            eng.bra_batch(i1, i2, ti, tj, fn=eri_kernel.bra_tiles_plain)
+
     before = eri_kernel.KERNEL.launches
     J1, K1 = builder.jk_stack_cart(D)
     torch.cuda.synchronize()
@@ -638,14 +652,17 @@ def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> d
         k1.append(cuda_ms(kernel1, 2))
         kv.append(cuda_ms(values, 2))
         full.append(cuda_ms(lambda: builder.jk_stack_cart(D), 2))
+    plain_ms = cuda_ms(plain, 1)
     nbytes, flops = eng.bra_kernel_work()
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
     res = {"launches_per_pass": per_pass, "max_abs_err": worst, "kernel1_ms": float(np.mean(k1)),
+           "plain_ms": plain_ms,
            "ket_ms": float(np.mean(kv) - np.mean(k1)), "digest_ms": float(np.mean(full) - np.mean(kv)),
            "pass_ms": float(np.mean(full)), "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
     print(f"direct pass on naphthalene: {per_pass} kernel-1 launches; kernel 1 "
-          f"{res['kernel1_ms']:.3f} ms (runs {k1}), ket contraction {res['ket_ms']:.3f} ms, "
+          f"{res['kernel1_ms']:.3f} ms (runs {k1}; its twin {plain_ms:.3f} ms), ket contraction "
+          f"{res['ket_ms']:.3f} ms, "
           f"digestion {res['digest_ms']:.3f} ms, whole pass {res['pass_ms']:.3f} ms (runs {full}); "
           f"kernel 1 must move {nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do "
           f"{flops / 1e9:.2f} GFLOP ({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by "
@@ -1386,6 +1403,265 @@ def cli_ccsd() -> None:
         fail(f"the CLI's ccsd did not print {want}: {proc.stderr[-2000:]}")
 
 
+# --------------------------------------------------------------------------
+# the gradient and geometry tier
+# --------------------------------------------------------------------------
+
+
+def print_gradient(label: str, g) -> None:
+    for i, row in enumerate(g):
+        print(f"  {label} atom {i}: {row[0]: .12f} {row[1]: .12f} {row[2]: .12f}", flush=True)
+
+
+def gradient_parts(label: str, tm: dict, wall: float) -> None:
+    print(f"{label}: wall {wall:.4f} s = scf_s {tm['scf_s']:.4f} + g0_s {tm['g0_s']:.4f} + "
+          f"one_electron_s {tm['one_electron_s']:.4f} + two_electron_s {tm['two_electron_s']:.4f} "
+          f"({tm['segments']} segments, peak device memory "
+          f"{tm['two_electron_peak_bytes'] / 1e9:.3f} GB)", flush=True)
+
+
+def hexagon(positions: np.ndarray) -> np.ndarray:
+    """data/mol/benzene.json's atoms placed exactly on their hexagons: each
+    ring (C, then H) at its mean radius, at multiples of 60 degrees. The
+    file's coordinates carry 8 decimals, so its D6h holds to ~1e-8 Bohr,
+    which moves the gradient's components by a few 1e-9 Eh/Bohr."""
+    out = np.zeros_like(positions)
+    for ring in (slice(0, 6), slice(6, 12)):
+        p = positions[ring]
+        r = float(np.hypot(p[:, 0], p[:, 1]).mean())
+        k = np.round(np.degrees(np.arctan2(p[:, 1], p[:, 0])) / 60.0)
+        angle = np.radians(60.0 * k)
+        out[ring, 0], out[ring, 1] = r * np.cos(angle), r * np.sin(angle)
+    return out
+
+
+def benzene_gradient(Q, kernels: dict, paths: dict):
+    """The headline of this tier: benzene/cc-pVDZ RHF (in core, SAD,
+    diag_rms 1e-10) and its analytic gradient, the counts set to 0 before
+    the SCF, at the file's geometry placed exactly on its hexagons
+    (``hexagon``). Gates: the sum over atoms within 1e-9 Eh/Bohr, every z
+    component within 1e-10 (the molecule is planar), the six C and the six H
+    radial components equal within 1e-9 (D6h), the x component of atom 0
+    within 1e-6 of a central difference of the card's total energy at
+    h = 1e-3 Bohr, a second gradient equal in bits, and the pair-mode
+    gradient (its own SCF) within 1e-9 of the in-core one. Returns the
+    system, config and SCF output."""
+    system = load_system(Q, "benzene")
+    system = system.with_positions(hexagon(system.positions))
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad")
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+    tm = {}
+    g = Q.rhf_gradient(system, cfg, output=out, device="cuda", timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    tm["scf_s"] = out.timings["total_s"]
+    gradient_parts(f"benzene/cc-pVDZ RHF + gradient (main path), E {out.total_energy():.10f}, "
+                   f"{out.iterations} SCF iterations", tm, wall)
+    print(f"  launches {launches}", flush=True)
+    print_gradient("benzene", g)
+    if not out.converged:
+        fail("the benzene/cc-pVDZ SCF did not converge")
+    if not (launches["eri_tile"] > 0 and launches["fock_matvec"] > 0):
+        fail(f"the benzene gradient path bypassed a kernel: {launches}")
+    paths["rhf + gradient benzene incore sad"] = dict(
+        launches, wall_s=wall, peak_bytes=tm["two_electron_peak_bytes"],
+        **{k: v for k, v in tm.items() if k != "two_electron_peak_bytes"})
+    gate("benzene gradient: largest |sum over atoms|", float(np.abs(g.sum(axis=0)).max()), 1e-9)
+    gate("benzene gradient: largest |z component|", float(np.abs(g[:, 2]).max()), 1e-10)
+    pos = system.positions - system.positions.mean(axis=0)
+    radial = (g * pos).sum(axis=1) / np.linalg.norm(pos, axis=1)
+    for name, sl in (("C", slice(0, 6)), ("H", slice(6, 12))):
+        print(f"  {name} radial components {radial[sl]}", flush=True)
+        gate(f"benzene gradient: spread of the {name} radial components",
+             float(np.ptp(radial[sl])), 1e-9)
+    h = 1e-3
+    energies = []
+    for sign in (1.0, -1.0):
+        x = system.positions.copy()
+        x[0, 0] += sign * h
+        run = Q.restricted_hartree_fock(system.with_positions(x), cfg, density_guess=out.density,
+                                        device="cuda")
+        if not run.converged:
+            fail("a displaced benzene SCF did not converge")
+        energies.append(run.total_energy())
+    fd = (energies[0] - energies[1]) / (2.0 * h)
+    print(f"  atom 0 x: analytic {g[0, 0]:.12f}, central difference {fd:.12f}", flush=True)
+    gate("benzene gradient: atom 0 x - central difference (h = 1e-3)", g[0, 0] - fd, 1e-6)
+    tm2 = {}
+    t0 = time.perf_counter()
+    again = Q.rhf_gradient(system, cfg, output=out, device="cuda", timings=tm2)
+    tm2["scf_s"] = 0.0
+    gradient_parts("benzene/cc-pVDZ gradient again (same SCF output)", tm2,
+                   time.perf_counter() - t0)
+    same = bool(np.array_equal(g, again))
+    print(f"benzene gradient twice: bits equal {same}", flush=True)
+    if not same:
+        fail("two benzene gradients on the same inputs differ")
+    pair_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad",
+                                   fock_mode="pair")
+    reset(kernels)
+    t0 = time.perf_counter()
+    pair_out = Q.restricted_hartree_fock(system, pair_cfg, device="cuda")
+    tm3 = {}
+    gp = Q.rhf_gradient(system, pair_cfg, output=pair_out, device="cuda", timings=tm3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    tm3["scf_s"] = pair_out.timings["total_s"]
+    gradient_parts(f"benzene/cc-pVDZ RHF + gradient pair, E {pair_out.total_energy():.10f}", tm3,
+                   wall)
+    print(f"  launches {launches}", flush=True)
+    if not (launches["eri_tile"] > 0 and launches["fock_matvec"] > 0):
+        fail(f"the benzene pair gradient path bypassed a kernel: {launches}")
+    paths["rhf + gradient benzene pair sad"] = dict(launches, wall_s=wall,
+                                                    peak_bytes=tm3["two_electron_peak_bytes"])
+    gate("benzene gradient: pair - in core", float(np.abs(gp - g).max()), 1e-9)
+    return system, cfg, out
+
+
+def uhf_gradient_oh(Q, kernels: dict, paths: dict) -> None:
+    """UHF OH/6-31G (doublet, in core, diag_rms 1e-12): the card's gradient
+    against the port's on the CPU within 1e-9, and its sum over atoms."""
+    system = load_system(Q, "hydroxyl", "6-31G")
+    cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=500, spin_multiplicity=2)
+    reset(kernels)
+    g = timed("UHF OH/6-31G SCF + gradient", lambda: Q.uhf_gradient(system, cfg, device="cuda"))
+    launches = launches_of(kernels)
+    print(f"  launches {launches}", flush=True)
+    print_gradient("OH", g)
+    if not (launches["eri_tile"] > 0 and launches["fock_matvec"] > 0):
+        fail(f"the UHF gradient path bypassed a kernel: {launches}")
+    paths["uhf + gradient hydroxyl incore"] = launches
+    cpu = Q.uhf_gradient(system, cfg, device="cpu")
+    gate("UHF OH/6-31G gradient: card - CPU", float(np.abs(g - cpu).max()), 1e-9)
+    gate("UHF OH/6-31G gradient: largest |sum over atoms|", float(np.abs(g.sum(axis=0)).max()),
+         1e-9)
+
+
+def water_frequencies(Q, kernels: dict, paths: dict) -> list:
+    """Water/cc-pVDZ: ``optimize_geometry`` from data/mol/water.json, then
+    ``harmonic_frequencies`` and ``thermochemistry`` at the optimum. Gates:
+    converged with max |g| < 3e-5, three vibrational modes, all real and
+    above 1000 cm^-1. Returns the three frequencies."""
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, spin_multiplicity=1)
+    reset(kernels)
+    t0 = time.perf_counter()
+    opt = Q.optimize_geometry(system, cfg, device="cuda")
+    opt_s = time.perf_counter() - t0
+    print(f"water/cc-pVDZ optimization: converged {opt.converged}, {opt.steps} steps, "
+          f"E {opt.energy:.10f}, max |g| {opt.gradient_norm:.2e}, wall {opt_s:.2f} s", flush=True)
+    print(f"  energies {opt.energies}", flush=True)
+    print(f"  geometry {opt.positions.tolist()}", flush=True)
+    if not (opt.converged and opt.gradient_norm < 3e-5):
+        fail("the water/cc-pVDZ optimization did not converge below max |g| 3e-5")
+    t0 = time.perf_counter()
+    res = Q.harmonic_frequencies(system.with_positions(opt.positions), cfg, device="cuda")
+    hess_s = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    vib = [f for f in res.frequencies_cm1 if abs(f) >= 50.0]
+    print(f"water/cc-pVDZ harmonic analysis: wall {hess_s:.2f} s (18 SCF + gradient runs), "
+          f"n_zero_modes {res.n_zero_modes} (6 expected), all modes {res.frequencies_cm1}; "
+          f"launches {launches}", flush=True)
+    th = Q.thermochemistry(system.with_positions(opt.positions), res.frequencies_cm1,
+                           symmetry_number=2)
+    print(f"  thermochemistry (298.15 K, 1 atm, sigma 2): ZPE {th.zpe:.6f} Eh, H - E "
+          f"{th.thermal_enthalpy:.6f} Eh, G - E {th.thermal_gibbs:.6f} Eh, S {th.entropy:.3f} "
+          f"J/(mol K)", flush=True)
+    if not (len(vib) == 3 and all(f > 1000.0 for f in vib)):
+        fail(f"water/cc-pVDZ vibrations {vib} are not three real modes above 1000 cm^-1")
+    if not (launches["eri_tile"] > 0 and launches["fock_matvec"] > 0):
+        fail(f"the water optimization and Hessian bypassed a kernel: {launches}")
+    paths["optimize + frequencies water incore"] = dict(
+        launches, optimize_s=opt_s, steps=opt.steps, hessian_s=hess_s,
+        n_zero_modes=res.n_zero_modes)
+    return vib
+
+
+def cli_run(cmd: list) -> list:
+    """One CLI subprocess on the card: exit 0, its printed lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"CLI {' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in proc.stdout.splitlines():
+        print(f"  {line}", flush=True)
+    if proc.returncode != 0:
+        fail(f"the CLI's {cmd[3]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout.splitlines()
+
+
+def cli_frequencies(vib: list) -> None:
+    """The CLI's frequencies --opt-first --thermo on water/cc-pVDZ as a
+    subprocess: the same three frequencies as the in-process run."""
+    lines = cli_run([sys.executable, "-m", "qchem_rs_tpu_torch.cli", "frequencies", "-b",
+                     "data/basis/cc-pVDZ.json", "-m", "data/mol/water.json", "--epsilon",
+                     "1e-10", "--opt-first", "--thermo", "--symmetry-number", "2"])
+    want = "harmonic frequencies (cm^-1): " + " ".join(f"{f:8.1f}" for f in vib)
+    if want not in lines or not any(x.startswith("  zero-point energy:") for x in lines):
+        fail(f"the CLI's frequencies did not print {want!r}")
+
+
+def polarizabilities(Q, kernels: dict, paths: dict, benzene, naphthalene) -> None:
+    """Static polarizabilities: benzene/cc-pVDZ in core and in pair space
+    (equal within 1e-8, alpha_xx = alpha_yy within 1e-8, positive
+    definite), naphthalene/cc-pVDZ in pair space (o*v = 5304)."""
+    system, cfg, out = benzene
+    alpha = {}
+    for mode in ("incore", "pair"):
+        run_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=150, initial_guess="sad",
+                                      fock_mode=mode)
+        reset(kernels)
+        alpha[mode] = timed(f"static polarizability benzene/cc-pVDZ {mode}",
+                            lambda: Q.static_polarizability(system, run_cfg, output=out,
+                                                            device="cuda"))
+        launches = launches_of(kernels)
+        print(f"  alpha {alpha[mode].tolist()}; launches {launches}", flush=True)
+        if launches["eri_tile"] == 0:
+            fail(f"the benzene polarizability in {mode} did not launch kernel 1")
+        paths[f"polarizability benzene {mode}"] = launches
+    a = alpha["incore"]
+    gate("benzene polarizability: in core - pair", float(np.abs(a - alpha["pair"]).max()), 1e-8)
+    gate("benzene polarizability: alpha_xx - alpha_yy", a[0, 0] - a[1, 1], 1e-8)
+    if not np.all(np.linalg.eigvalsh(a) > 0):
+        fail(f"the benzene polarizability is not positive definite: {a}")
+    system, cfg, out = naphthalene
+    reset(kernels)
+    an = timed("static polarizability naphthalene/cc-pVDZ pair (o*v = 5304)",
+               lambda: Q.static_polarizability(system, cfg, output=out, device="cuda"))
+    launches = launches_of(kernels)
+    print(f"  alpha {an.tolist()}, isotropic {np.trace(an) / 3.0:.6f}; launches {launches}",
+          flush=True)
+    if launches["eri_tile"] == 0 or not np.all(np.linalg.eigvalsh(an) > 0):
+        fail("the naphthalene polarizability bypassed kernel 1 or is not positive definite")
+    paths["polarizability naphthalene pair"] = launches
+
+
+def cli_gradient_polarizability(Q) -> None:
+    """The CLI's rhf --gradient --polarizability on water/cc-pVDZ as a
+    subprocess: its gradient and polarizability lines equal the
+    in-process values at their printed digits."""
+    system = load_system(Q, "water")
+    cfg = Q.HartreeFockConfig(epsilon=1e-10, spin_multiplicity=1)
+    out = Q.restricted_hartree_fock(system, cfg, device="cuda")
+    g = Q.rhf_gradient(system, cfg, output=out, device="cuda")
+    alpha = Q.static_polarizability(system, cfg, output=out, device="cuda")
+    lines = cli_run([sys.executable, "-m", "qchem_rs_tpu_torch.cli", "rhf", "-b",
+                     "data/basis/cc-pVDZ.json", "-m", "data/mol/water.json", "--epsilon", "1e-10",
+                     "--gradient", "--polarizability"])
+    want = [f"  {a.ordinal:3d}  {r[0]: .8f} {r[1]: .8f} {r[2]: .8f}"
+            for a, r in zip(system.atoms, g)]
+    want += [f"static polarizability (a.u.), isotropic {float(np.trace(alpha) / 3.0):.6f}:"]
+    want += [f"  {r[0]: .6f} {r[1]: .6f} {r[2]: .6f}" for r in alpha]
+    missing = [w for w in want if w not in lines]
+    if missing:
+        fail(f"the CLI's rhf --gradient --polarizability did not print {missing}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1506,7 +1782,17 @@ def main(argv: list[str]) -> int:
     eom_runs(Q, named, paths)
     cc_dipoles(Q)
     cli_ccsd()
+
+    # 10. the gradient and geometry tier: the benzene gradient (in core, pair),
+    # UHF OH, the water optimization and frequencies, the polarizabilities,
+    # and the CLI's frequencies and rhf --gradient --polarizability
+    benzene_grad = benzene_gradient(Q, named, paths)
+    uhf_gradient_oh(Q, named, paths)
+    cli_frequencies(water_frequencies(Q, named, paths))
+    polarizabilities(Q, named, paths, benzene_grad, naphthalene)
+    cli_gradient_polarizability(Q)
     post_hf_launches = paths["rhf + ccsd(t) benzene incore sad"]
+    grad_launches = paths["rhf + gradient benzene incore sad"]
     print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [
@@ -1514,6 +1800,7 @@ def main(argv: list[str]) -> int:
          "replaces": "qchem_rs_tpu/ops/eri_pallas.py:205", "launches": launches["eri_tile"],
          "launches_per_run": launches["eri_tile"],
          "launches_rhf_ccsd_t": post_hf_launches["eri_tile"],
+         "launches_rhf_gradient": grad_launches["eri_tile"],
          "max_abs_err": max(k1_abs, k1["max_abs_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -1529,7 +1816,8 @@ def main(argv: list[str]) -> int:
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],
          "launches_per_run": launches["fock_matvec"],
-         "launches_rhf_ccsd_t": post_hf_launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
+         "launches_rhf_ccsd_t": post_hf_launches["fock_matvec"],
+         "launches_rhf_gradient": grad_launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]}), flush=True)

@@ -16,18 +16,32 @@ in core and in pair space (``models/mp2.py``); the correlated tier past
 it: CCSD(T) and UCCSD(T) (``models/cc.py``), CIS/TDHF/UCIS
 (``models/cis.py``), FCI (``models/fci.py``), EOM-CCSD (``models/eom.py``)
 and the CC Lambda and relaxed dipoles (``models/cc_lambda.py``,
-``models/cc_relaxed.py``); and the ``rhf``, ``uhf``, ``mp2``, ``ccsd``,
-``fci``, ``eom``, ``cis`` and ``info`` subcommands of the CLI. Everything
-is float64, and the SCF and CCSD(T) repeat bit for bit on the same inputs.
+``models/cc_relaxed.py``); the gradient and geometry tier: analytic RHF
+and UHF nuclear gradients (``models/gradients.py``, with the derivative
+integrals segment by segment in pair space, ``models/gradients_pair.py``),
+geometry optimization (``models/optimize.py``), harmonic frequencies
+(``models/hessian.py``), RRHO thermochemistry (``models/thermo.py``) and
+static and dynamic polarizabilities (``models/response.py``); and the
+``rhf`` (with ``--gradient`` and ``--polarizability``), ``uhf``, ``mp2``,
+``ccsd``, ``fci``, ``eom``, ``cis``, ``optimize``, ``frequencies`` and
+``info`` subcommands of the CLI. Everything is float64, and the SCF,
+CCSD(T) and the nuclear gradient repeat bit for bit on the same inputs.
 Every entry point takes an explicit ``device``; CPU tensors run each
 kernel's plain PyTorch twin. The package never imports JAX.
 """
 
 from qchem_rs_tpu_torch.config import HartreeFockConfig
 from qchem_rs_tpu_torch.models.cis import cis, ucis
+from qchem_rs_tpu_torch.models.gradients import (rhf_energy_and_gradient, rhf_gradient,
+                                                 scf_and_gradient, uhf_gradient)
+from qchem_rs_tpu_torch.models.gradients_pair import rhf_gradient_pair, uhf_gradient_pair
+from qchem_rs_tpu_torch.models.hessian import HarmonicResult, harmonic_frequencies, hessian_fd
 from qchem_rs_tpu_torch.models.mp2 import Mp2Output, mp2, mp2_pair_space, ump2, ump2_pair_space
+from qchem_rs_tpu_torch.models.optimize import OptimizationResult, optimize_geometry
 from qchem_rs_tpu_torch.models.properties import dipole_moment, mulliken_charges, spin_expectation
+from qchem_rs_tpu_torch.models.response import dynamic_polarizability, static_polarizability
 from qchem_rs_tpu_torch.models.rhf import RestrictedHartreeFockOutput, restricted_hartree_fock
+from qchem_rs_tpu_torch.models.thermo import ThermoOutput, thermochemistry
 from qchem_rs_tpu_torch.models.uhf import UnrestrictedHartreeFockOutput, unrestricted_hartree_fock
 from qchem_rs_tpu_torch.utils.basis import BasisSet
 from qchem_rs_tpu_torch.utils.checkpoint import ScfCheckpoint
@@ -36,20 +50,35 @@ from qchem_rs_tpu_torch.utils.system import Atom, MolecularSystem
 __all__ = [
     "Atom",
     "BasisSet",
+    "HarmonicResult",
     "HartreeFockConfig",
     "MolecularSystem",
     "Mp2Output",
+    "OptimizationResult",
     "RestrictedHartreeFockOutput",
     "ScfCheckpoint",
+    "ThermoOutput",
     "UnrestrictedHartreeFockOutput",
     "cis",
     "dipole_moment",
+    "dynamic_polarizability",
+    "harmonic_frequencies",
+    "hessian_fd",
     "mp2",
     "mp2_pair_space",
     "mulliken_charges",
+    "optimize_geometry",
     "restricted_hartree_fock",
+    "rhf_energy_and_gradient",
+    "rhf_gradient",
+    "rhf_gradient_pair",
+    "scf_and_gradient",
     "spin_expectation",
+    "static_polarizability",
+    "thermochemistry",
     "ucis",
+    "uhf_gradient",
+    "uhf_gradient_pair",
     "ump2",
     "ump2_pair_space",
     "unrestricted_hartree_fock",

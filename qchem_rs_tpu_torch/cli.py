@@ -1,5 +1,6 @@
-"""Command-line interface of the port: the ``rhf``, ``uhf``, ``mp2``,
-``ccsd``, ``fci``, ``eom``, ``cis`` and ``info`` subcommands of
+"""Command-line interface of the port: the ``rhf`` (with ``--gradient``
+and ``--polarizability``), ``uhf``, ``mp2``, ``ccsd``, ``fci``, ``eom``,
+``cis``, ``optimize``, ``frequencies`` and ``info`` subcommands of
 ``qchem_rs_tpu/cli.py``.
 
     python -m qchem_rs_tpu_torch.cli rhf -b data/basis/cc-pVDZ.json \\
@@ -16,6 +17,10 @@
         -m data/mol/naphthalene.json --fock-mode pair --nstates 5
     python -m qchem_rs_tpu_torch.cli eom -b data/basis/STO-3G.json \\
         -m data/mol/water.json --matrix-free --formulation spatial
+    python -m qchem_rs_tpu_torch.cli rhf -b data/basis/cc-pVDZ.json \\
+        -m data/mol/water.json --epsilon 1e-10 --gradient --polarizability
+    python -m qchem_rs_tpu_torch.cli frequencies -b data/basis/cc-pVDZ.json \\
+        -m data/mol/water.json --epsilon 1e-10 --opt-first --thermo
     python -m qchem_rs_tpu_torch.cli info -b data/basis/6-31G.json -m data/mol/methane.json
 
 Every SCF subcommand takes the JAX CLI's common flags (``--charge``,
@@ -173,6 +178,23 @@ def cmd_rhf(args) -> int:
         return 1
     _print_energies(out, elapsed)
     print(f"orbital energies: {_fmt_orbitals(out.orbital_energies)}")
+    if args.gradient:
+        from qchem_rs_tpu_torch.models.gradients import rhf_gradient
+
+        g = rhf_gradient(system, cfg, output=out, device=device)
+        print("nuclear gradient (Hartree/Bohr):")
+        for atom, row in zip(system.atoms, g):
+            print(f"  {atom.ordinal:3d}  {row[0]: .8f} {row[1]: .8f} {row[2]: .8f}")
+    if args.polarizability:
+        import numpy as np
+
+        from qchem_rs_tpu_torch.models.response import static_polarizability
+
+        alpha = static_polarizability(system, cfg, output=out, device=device)
+        iso = float(np.trace(alpha) / 3.0)
+        print(f"static polarizability (a.u.), isotropic {iso:.6f}:")
+        for row in alpha:
+            print(f"  {row[0]: .6f} {row[1]: .6f} {row[2]: .6f}")
     _print_properties(args, system, out.density, device)
     return 0
 
@@ -415,6 +437,72 @@ def cmd_cis(args) -> int:
     return 0
 
 
+def _geometry_config(system, cfg):
+    """A closed shell's config with multiplicity 1 (open shells keep
+    theirs and run UHF)."""
+    if cfg.spin_multiplicity == 0 and not _open_shell(system, cfg):
+        cfg = dataclasses.replace(cfg, spin_multiplicity=1)
+    return cfg
+
+
+def cmd_optimize(args) -> int:
+    from qchem_rs_tpu_torch.models.optimize import optimize_geometry
+
+    system, cfg, device = _build(args)
+    cfg = _geometry_config(system, cfg)
+    start = time.perf_counter()
+    res = optimize_geometry(system, cfg, gtol=args.gtol, max_steps=args.max_steps, device=device)
+    elapsed = time.perf_counter() - start
+    status = "converged" if res.converged else "did NOT converge"
+    print(f"geometry optimization {status} after {res.steps} energy/gradient "
+          f"evaluations and {elapsed:0.2f}s")
+    print(f"final energy: {res.energy:3.8f}")
+    print(f"max |gradient|: {res.gradient_norm:.2e} Hartree/Bohr")
+    print("final geometry (Bohr):")
+    for atom, row in zip(system.atoms, res.positions):
+        print(f"  {atom.ordinal:3d}  {row[0]: .6f} {row[1]: .6f} {row[2]: .6f}")
+    return 0 if res.converged else 1
+
+
+def cmd_frequencies(args) -> int:
+    from qchem_rs_tpu_torch.models.hessian import harmonic_frequencies
+    from qchem_rs_tpu_torch.models.optimize import optimize_geometry
+
+    system, cfg, device = _build(args)
+    cfg = _geometry_config(system, cfg)
+    start = time.perf_counter()
+    if args.opt_first:
+        opt = optimize_geometry(system, cfg, device=device)
+        if not opt.converged:
+            print("geometry optimization did not converge", file=sys.stderr)
+            return 1
+        system = system.with_positions(opt.positions)
+    res = harmonic_frequencies(system, cfg, device=device)
+    elapsed = time.perf_counter() - start
+    print(f"harmonic analysis finished in {elapsed:0.2f}s")
+    print(f"near-zero (trans/rot) modes: {res.n_zero_modes}")
+    vib = [f for f in res.frequencies_cm1 if abs(f) >= 50.0]
+    print("harmonic frequencies (cm^-1):", " ".join(f"{f:8.1f}" for f in vib))
+    if args.thermo:
+        from qchem_rs_tpu_torch.models.thermo import thermochemistry
+
+        th = thermochemistry(system, res.frequencies_cm1, temperature=args.temperature,
+                             pressure=args.pressure, symmetry_number=args.symmetry_number,
+                             spin_multiplicity=max(cfg.spin_multiplicity, 1))
+        shape = "linear" if th.linear else (
+            "atom" if not len(th.rotational_temperatures) else "nonlinear")
+        print(f"thermochemistry (RRHO, {th.temperature:.2f} K, "
+              f"{th.pressure:.0f} Pa, sigma={args.symmetry_number}, {shape}):")
+        print(f"  zero-point energy: {th.zpe:.6f} Eh")
+        print(f"  thermal energy (U - E_elec): {th.thermal_energy:.6f} Eh")
+        print(f"  thermal enthalpy (H - E_elec): {th.thermal_enthalpy:.6f} Eh")
+        print(f"  thermal gibbs (G - E_elec): {th.thermal_gibbs:.6f} Eh")
+        p = th.entropy_parts
+        print(f"  entropy: {th.entropy:.3f} J/(mol K)  [trans {p['trans']:.3f}"
+              f", rot {p['rot']:.3f}, vib {p['vib']:.3f}, elec {p['elec']:.3f}]")
+    return 0
+
+
 def cmd_info(args) -> int:
     system = _system(args, spherical=False)
     print(f"MolecularSystem({len(system.atoms)} atoms, {len(system.shells)} shells, "
@@ -486,6 +574,11 @@ def main(argv=None) -> int:
     parser.add_argument("--verbose", "-v", action="store_true", help="per-iteration SCF logging")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("rhf", help="restricted Hartree-Fock single point")
+    p.add_argument("--gradient", action="store_true",
+                   help="also print the analytic nuclear gradient")
+    p.add_argument("--polarizability", action="store_true",
+                   help="also print the CPHF static dipole polarizability tensor (one (A+B) "
+                   "linear solve)")
     _common_flags(p, uhf=False)
     p.set_defaults(fn=cmd_rhf)
     p = sub.add_parser("uhf", help="unrestricted Hartree-Fock single point")
@@ -547,6 +640,26 @@ def main(argv=None) -> int:
                    help="CIS eigensolver: dense diagonalization or implicit-sigma Davidson "
                    "(auto switches to davidson past no*nv = 4096)")
     p.set_defaults(fn=cmd_cis)
+    p = sub.add_parser("optimize", help="geometry optimization on analytic gradients (RHF; UHF "
+                       "for open shells)")
+    _common_flags(p, uhf=True)
+    p.add_argument("--gtol", type=float, default=3e-5,
+                   help="max-abs gradient convergence threshold (Hartree/Bohr)")
+    p.add_argument("--max-steps", type=int, default=50,
+                   help="maximum optimizer energy/gradient evaluations")
+    p.set_defaults(fn=cmd_optimize)
+    p = sub.add_parser("frequencies", help="harmonic vibrational frequencies on a semi-numerical "
+                       "Hessian of analytic gradients")
+    _common_flags(p, uhf=True)
+    p.add_argument("--opt-first", action="store_true",
+                   help="optimize the geometry before the harmonic analysis")
+    p.add_argument("--thermo", action="store_true",
+                   help="ideal-gas RRHO thermochemistry (ZPE, U, H, G, S)")
+    p.add_argument("--temperature", type=float, default=298.15, help="temperature (K)")
+    p.add_argument("--pressure", type=float, default=101325.0, help="pressure (Pa)")
+    p.add_argument("--symmetry-number", type=int, default=1,
+                   help="rotational symmetry number sigma")
+    p.set_defaults(fn=cmd_frequencies)
     p = sub.add_parser("info", help="inspect a molecule/basis combination")
     p.add_argument("--basis-set", "-b", required=True)
     p.add_argument("--molecule", "-m", required=True)

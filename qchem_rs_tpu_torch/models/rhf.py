@@ -174,6 +174,44 @@ def core_hamiltonian(system: MolecularSystem, device, field=(0.0, 0.0, 0.0)):
     return S, H, scf.lowdin_x(S), de
 
 
+def two_electron_operator(system: MolecularSystem, config: HartreeFockConfig, device,
+                          timings: Optional[dict] = None):
+    """(engine, g_fn) of the configured Fock mode on ``device``: g_fn(D) is
+    G = J - 1/2 K of a total density D in the working basis, and engine the
+    ``TiledEriEngine`` the mode builds with. In core, the operator terms
+    are built here (kernel 1) and each G is kernel 2's matvec on them; the
+    pair mode builds V2f and W here; the direct mode runs kernel 1 at every
+    call. The build's time goes into ``timings["eri_s"]`` (not for direct)."""
+    timings = {} if timings is None else timings
+    thr = config.screening_threshold
+    n = system.n_basis()
+    if config.fock_mode == "incore":
+        engine = TiledEriEngine(system, thr, device=device)
+        t1 = time.perf_counter()
+        terms = engine.finish_terms(engine.build())
+        _sync(device)
+        timings["eri_s"] = time.perf_counter() - t1
+
+        def g_fn(D):
+            return fock_matvec.matvec(terms, D.reshape(-1)).reshape(n, n)
+
+        return engine, g_fn
+    if config.fock_mode == "pair":
+        builder = PairSpaceFockBuilder(system, thr, device=device)
+        t1 = time.perf_counter()
+        builder.prepare()
+        _sync(device)
+        timings["eri_s"] = time.perf_counter() - t1
+    else:
+        builder = StreamingFockBuilder(system, thr, device=device)
+
+    def g_fn(D):
+        J, K = builder.jk(D)
+        return J - 0.5 * K
+
+    return builder.engine, g_fn
+
+
 def restricted_hartree_fock(
     system: MolecularSystem,
     config: Optional[HartreeFockConfig] = None,
@@ -211,34 +249,14 @@ def restricted_hartree_fock(
         timings["guess_s"] = time.perf_counter() - t_g
     D0 = None if density_guess is None else interop.density_guess(density_guess, n, 1, device)
     t0 = time.perf_counter()
-    thr = config.screening_threshold
     if config.fock_mode == "incore":
-        engine = TiledEriEngine(system, thr, device=device)
         t1 = time.perf_counter()
         S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         _sync(device)
         timings["one_electron_s"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        terms = engine.finish_terms(engine.build())
-        _sync(device)
-        timings["eri_s"] = time.perf_counter() - t1
-
-        def g_fn(D):
-            return fock_matvec.matvec(terms, D.reshape(-1)).reshape(n, n)
     else:
         S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
-        if config.fock_mode == "pair":
-            builder = PairSpaceFockBuilder(system, thr, device=device)
-            t1 = time.perf_counter()
-            builder.prepare()
-            _sync(device)
-            timings["eri_s"] = time.perf_counter() - t1
-        else:
-            builder = StreamingFockBuilder(system, thr, device=device)
-
-        def g_fn(D):
-            J, K = builder.jk(D)
-            return J - 0.5 * K
+    _, g_fn = two_electron_operator(system, config, device, timings)
     t1 = time.perf_counter()
     st = _rhf_scf(H, X, S, nocc, config, g_fn, D0)
     _sync(device)

@@ -142,6 +142,53 @@ def _uhf_scf(H, X, S, nocc: tuple[int, int], config: HartreeFockConfig, jk_fn, D
     return _UhfResult(passes, D, energy, converged, w, C)
 
 
+def jk_operator(system: MolecularSystem, config: HartreeFockConfig, device,
+                timings: Optional[dict] = None):
+    """(engine, jk_fn) of the configured Fock mode on ``device``: jk_fn(D)
+    of per-spin densities D (2, n, n) is (J of the total density, K per
+    spin (2, n, n)) in the working basis. In core the (n, n, n, n) tensor
+    is built here (kernel 1) and J is kernel 2 on it; the pair mode builds
+    V2f and W here; the direct mode digests both spins in one pass of
+    kernel 1 per call. The build's time goes into ``timings["eri_s"]``."""
+    timings = {} if timings is None else timings
+    thr = config.screening_threshold
+    n = system.n_basis()
+    if config.fock_mode == "incore":
+        engine = TiledEriEngine(system, thr, device=device)
+        t1 = time.perf_counter()
+        e4 = engine.finish_eri(engine.build())
+        _sync(device)
+        timings["eri_s"] = time.perf_counter() - t1
+        eri_mat = e4.reshape(n * n, n * n)
+
+        def jk_fn(D):
+            J = fock_matvec.matvec(eri_mat, (D[0] + D[1]).reshape(-1)).reshape(n, n)
+            K = torch.empty_like(D)
+            for i in range(n):  # K^s_ij = sum_kl (ik|jl) D^s_kl; e4[i] is [k, j, l]
+                K[:, i] = torch.einsum("kjl,skl->sj", e4[i], D)
+            return J, K
+
+        return engine, jk_fn
+    if config.fock_mode == "pair":
+        builder = PairSpaceFockBuilder(system, thr, device=device)
+        t1 = time.perf_counter()
+        builder.prepare()
+        _sync(device)
+        timings["eri_s"] = time.perf_counter() - t1
+
+        def jk_fn(D):
+            (Ja, Ka), (Jb, Kb) = builder.jk(D[0]), builder.jk(D[1])
+            return Ja + Jb, torch.stack([Ka, Kb])
+    else:
+        builder = StreamingFockBuilder(system, thr, device=device)
+
+        def jk_fn(D):
+            Js, Ks = builder.jk_stack(D)  # one recomputation for both spins
+            return Js[0] + Js[1], Ks
+
+    return builder.engine, jk_fn
+
+
 def unrestricted_hartree_fock(
     system: MolecularSystem,
     config: Optional[HartreeFockConfig] = None,
@@ -176,43 +223,14 @@ def unrestricted_hartree_fock(
         timings["guess_s"] = time.perf_counter() - t_g
     D0 = None if density_guess is None else interop.density_guess(density_guess, n, 2, device)
     t0 = time.perf_counter()
-    thr = config.screening_threshold
     if config.fock_mode == "incore":
-        engine = TiledEriEngine(system, thr, device=device)
         t1 = time.perf_counter()
         S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
         _sync(device)
         timings["one_electron_s"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        e4 = engine.finish_eri(engine.build())
-        _sync(device)
-        timings["eri_s"] = time.perf_counter() - t1
-        eri_mat = e4.reshape(n * n, n * n)
-
-        def jk_fn(D):
-            J = fock_matvec.matvec(eri_mat, (D[0] + D[1]).reshape(-1)).reshape(n, n)
-            K = torch.empty_like(D)
-            for i in range(n):  # K^s_ij = sum_kl (ik|jl) D^s_kl; e4[i] is [k, j, l]
-                K[:, i] = torch.einsum("kjl,skl->sj", e4[i], D)
-            return J, K
     else:
         S, H, X, e_field = core_hamiltonian(system, device, config.electric_field)
-        if config.fock_mode == "pair":
-            builder = PairSpaceFockBuilder(system, thr, device=device)
-            t1 = time.perf_counter()
-            builder.prepare()
-            _sync(device)
-            timings["eri_s"] = time.perf_counter() - t1
-
-            def jk_fn(D):
-                (Ja, Ka), (Jb, Kb) = builder.jk(D[0]), builder.jk(D[1])
-                return Ja + Jb, torch.stack([Ka, Kb])
-        else:
-            builder = StreamingFockBuilder(system, thr, device=device)
-
-            def jk_fn(D):
-                Js, Ks = builder.jk_stack(D)  # one recomputation for both spins
-                return Js[0] + Js[1], Ks
+    _, jk_fn = jk_operator(system, config, device, timings)
     t1 = time.perf_counter()
     st = _uhf_scf(H, X, S, nocc, config, jk_fn, D0)
     _sync(device)

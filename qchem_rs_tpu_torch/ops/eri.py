@@ -81,10 +81,13 @@ def _pair_hermite(la, lb, a, b, cc, A, B, AB):
     )
 
 
-def build_pair_groups(system: MolecularSystem, device) -> list[PairGroup]:
+def build_pair_groups(system: MolecularSystem, device, positions=None) -> list[PairGroup]:
     """Unique shell pairs {i, j} grouped by unordered class pair (la >= lb),
-    classes in ascending la, then ascending lb."""
-    positions = torch.as_tensor(system.positions, dtype=torch.float64, device=device)
+    classes in ascending la, then ascending lb. ``positions`` (natom, 3), a
+    tensor on ``device``, replaces ``system.positions``: E, p and P are then
+    functions of it that autograd can follow."""
+    if positions is None:
+        positions = torch.as_tensor(system.positions, dtype=torch.float64, device=device)
     f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=device)  # noqa: E731
     classes = system.shell_classes
     ls = sorted(classes)

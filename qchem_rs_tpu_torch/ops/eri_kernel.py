@@ -119,12 +119,19 @@ def _nonzero_prims(E: torch.Tensor) -> torch.Tensor:
     return E.reshape(E.shape[0], E.shape[1], -1).ne(0).any(dim=-1)
 
 
-def compact_prims(E: torch.Tensor, p: torch.Tensor, P: torch.Tensor):
-    """(E, p, P) of a padded class with each pair's primitive pairs
-    reordered so that those with nonzero E come first (stable, so real
-    primitive pairs keep their order)."""
+def compact_order(E: torch.Tensor) -> torch.Tensor:
+    """(N, a) per-pair order of a padded class's primitive pairs that puts
+    those with nonzero E first (stable, so real primitive pairs keep their
+    order)."""
     nz = _nonzero_prims(E)
-    perm = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
+    return torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
+
+
+def compact_prims(E: torch.Tensor, p: torch.Tensor, P: torch.Tensor, perm=None):
+    """(E, p, P) of a padded class with each pair's primitive pairs
+    reordered by ``perm``, ``compact_order(E)`` when None."""
+    if perm is None:
+        perm = compact_order(E)
     E = torch.take_along_dim(E, perm[:, :, None, None], dim=1)
     p = torch.take_along_dim(p, perm, dim=1)
     P = torch.take_along_dim(P, perm[:, :, None], dim=1)

@@ -36,7 +36,8 @@ import torch
 
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri import PairGroup, build_pair_groups
-from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles, bra_tiles_plain, compact_prims, prim_counts
+from qchem_rs_tpu_torch.ops.eri_kernel import (bra_tiles, bra_tiles_plain, compact_order, compact_prims,
+                                               prim_counts)
 from qchem_rs_tpu_torch.ops.fock import schwarz_bounds
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.ops.spherical import cart_to_sph, nsph
@@ -281,7 +282,7 @@ class TiledEriEngine:
         self.nao = system.n_basis_cart()
         self.threshold = screening_threshold
         groups = build_pair_groups(system, self.device)
-        bounds = None
+        bounds = orders = None
         if screening_threshold > 0:
             bounds = schwarz_bounds(groups)
             # sort each class's pairs by DESCENDING Schwarz bound so tile
@@ -292,9 +293,14 @@ class TiledEriEngine:
             bounds = [b[o] for b, o in zip(bounds, orders)]
         #: per-class Schwarz bounds in the stored (sorted) pair order
         self.bounds = bounds
+        #: per-class pair orders (None when unscreened) and primitive-pair
+        #: orders of this geometry, which ``padded_at`` reuses
+        self._orders = orders
         self.layout = PairSpaceLayout(system, groups)
         metas = self.layout.metas
-        self._padded = [compact_prims(*pad_group(g, m.npad)) for g, m in zip(groups, metas)]
+        padded = [pad_group(g, m.npad) for g, m in zip(groups, metas)]
+        self._prim_orders = [compact_order(E) for E, _, _ in padded]
+        self._padded = [compact_prims(*t, perm) for t, perm in zip(padded, self._prim_orders)]
         #: kernel 1's primitive counts per class
         self._counts = [prim_counts(E, m.tile) for (E, _, _), m in zip(self._padded, metas)]
         #: (i1, i2, ti, tj) per class pair with at least one kept tile
@@ -310,6 +316,20 @@ class TiledEriEngine:
                 )
                 if len(ti):
                     self._tasks.append((i1, i2, ti, tj))
+
+    def padded_at(self, positions: torch.Tensor) -> list:
+        """Every class's padded, compacted (E, p, P) rebuilt at ``positions``
+        (natom, 3), a tensor on the engine's device, as functions of it that
+        autograd can follow (port of ``padded_groups``,
+        ``qchem_rs_tpu/ops/eri_tiled.py:675``). The pair order, padding and
+        primitive-pair order are this engine's, fixed at the geometry it
+        was built at, as are its tile lists; at that geometry the result
+        equals the engine's own operands."""
+        groups = build_pair_groups(self.system, self.device, positions=positions)
+        if self._orders is not None:
+            groups = [g.take(o) for g, o in zip(groups, self._orders)]
+        return [compact_prims(*pad_group(g, m.npad), perm)
+                for g, m, perm in zip(groups, self.layout.metas, self._prim_orders)]
 
     def batches(self, twin: bool = False):
         """Every kernel-1 call of one ``build``: (i1, i2, ti, tj) with the

@@ -139,9 +139,61 @@ def r_table_leading(L: int, p, PC):
     return r_table_components(L, p, PCx, PCy, PCz)
 
 
+@lru_cache(maxsize=None)
+def _r_raise_plan(L: int):
+    """(keep, up): the positions in ``hermite_components(L + 1)`` of every
+    entry s of ``hermite_components(L)``, and of s + e_d for d = x, y, z
+    (up, (3, H))."""
+    index = hermite_index(L + 1)
+    comps = hermite_components(L)
+    keep = np.array([index[s] for s in comps], dtype=np.int64)
+    up = np.array([[index[(t + (d == 0), u + (d == 1), v + (d == 2))] for (t, u, v) in comps]
+                   for d in range(3)], dtype=np.int64)
+    return keep, up
+
+
+class _HermiteR(torch.autograd.Function):
+    """The R table with its derivative in PC by the Hermite identity
+    d R_{tuv} / d PC_x = R_{t+1,u,v} (and so for y, z): one table at L + 1
+    serves the values and the backward, so autograd never runs through the
+    recursion or the Boys function. p is held constant (its derivative is
+    not needed: exponents do not move with the nuclei)."""
+
+    @staticmethod
+    def forward(ctx, L, p, PCx, PCy, PCz):
+        R1 = _r_table(L + 1, p, PCx, PCy, PCz)
+        keep, up = _r_raise_plan(L)
+        ctx.save_for_backward(R1)
+        ctx.up = up
+        ctx.shapes = (PCx.shape, PCy.shape, PCz.shape)
+        return R1[torch.as_tensor(keep, device=R1.device)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (R1,) = ctx.saved_tensors
+        grads = [None, None]
+        for d in range(3):
+            if not ctx.needs_input_grad[2 + d]:
+                grads.append(None)
+                continue
+            up = torch.as_tensor(ctx.up[d], device=R1.device)
+            grads.append((grad * R1[up]).sum(dim=0).sum_to_size(ctx.shapes[d]))
+        return tuple(grads)
+
+
 def r_table_components(L: int, p, PCx, PCy, PCz):
     """``r_table_leading`` with the three PC components as separate tensors
-    (the tile path never builds a trailing 3-vector axis)."""
+    (the tile path never builds a trailing 3-vector axis). When autograd
+    follows PC (and not p), the table and its backward come from one table
+    at L + 1 (``_HermiteR``)."""
+    if torch.is_grad_enabled() and not p.requires_grad and (
+            PCx.requires_grad or PCy.requires_grad or PCz.requires_grad):
+        return _HermiteR.apply(L, p, PCx, PCy, PCz)
+    return _r_table(L, p, PCx, PCy, PCz)
+
+
+def _r_table(L: int, p, PCx, PCy, PCz):
+    """The recursion of ``r_table_components``."""
     T = p * (PCx * PCx + PCy * PCy + PCz * PCz)
     F = boys(L, T)  # (L+1,) + B
     m2p = -2.0 * p
@@ -154,7 +206,7 @@ def r_table_components(L: int, p, PCx, PCy, PCz):
     if L == 0:
         return base[0].expand(bshape)[None]
 
-    onehot, idx1, idx2, coef = _r_plan(L)
+    onehot, idx1, idx2, coef, pos = _r_level_plan(L)
     H = len(hermite_components(L))
     extra = (1,) * len(bshape)
     dev, dt = p.device, p.dtype
@@ -162,17 +214,33 @@ def r_table_components(L: int, p, PCx, PCy, PCz):
         torch.as_tensor(onehot[:, d], dtype=dt, device=dev).reshape((H,) + extra)
         for d in range(3)
     )
-    PCs = ox * PCx[None] + oy * PCy[None] + oz * PCz[None]  # (H,) + B
+    PCs = ox * PCx[None] + oy * PCy[None] + oz * PCz[None]  # (H,) + B, level order
     coef = torch.as_tensor(coef, dtype=dt, device=dev).reshape((H,) + extra)
     idx1 = torch.as_tensor(idx1, dtype=torch.long, device=dev)
     idx2 = torch.as_tensor(idx2, dtype=torch.long, device=dev)
 
-    R = torch.zeros((H,) + tuple(bshape), dtype=dt, device=dev)
-    R[0] = base[L]
+    R = base[L].expand(bshape)[None]
     for n in range(L - 1, -1, -1):
-        R = PCs * R[idx1] + coef * R[idx2]
-        R[0] = base[n]
-    return R
+        k = nhermite(L - n)  # the entries of order <= L - n, valid at level n
+        new = PCs[1:k] * R[idx1[1:k]] + coef[1:k] * R[idx2[1:k]]
+        R = torch.cat([base[n].expand(bshape)[None], new])
+    return R[torch.as_tensor(pos, dtype=torch.long, device=dev)]
+
+
+@lru_cache(maxsize=None)
+def _r_level_plan(L: int):
+    """``_r_plan`` in level order: the Hermite entries sorted stably by
+    their order t+u+v, so that level n of the recursion computes only its
+    valid entries, the first nhermite(L - n). Returns (onehot, idx1, idx2,
+    coef) in that order, indices pointing at level-order positions, and
+    ``pos``, each entry's position (the gather back to
+    ``hermite_components`` order). Every valid entry is computed by the
+    same operations on the same operands as in the full-table recursion."""
+    onehot, idx1, idx2, coef = _r_plan(L)
+    order = np.asarray(hermite_components(L)).sum(axis=1)
+    lev = np.argsort(order, kind="stable")  # position -> entry
+    pos = np.argsort(lev)  # entry -> position
+    return onehot[lev], pos[idx1[lev]], pos[idx2[lev]], coef[lev], pos
 
 
 @lru_cache(maxsize=None)

@@ -8,6 +8,11 @@ Shell pairs are batched per (la, lb) class with padded primitive axes; each
 class is one batched tensor computation. Padded primitives carry
 coefficient 0 and contribute nothing. Plain PyTorch: these matrices are
 (nao, nao) and cost milliseconds next to the ERI build.
+
+Each entry point takes an optional ``positions`` tensor (natom, 3) in place
+of ``system.positions``; autograd then follows the matrices back to it (the
+nuclear gradients of ``models/gradients.py``). Without one the result is
+the same as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -97,9 +102,15 @@ def _nuclear_class(la, lb, a, b, cc, A, B, AB, charges, positions):
     return V.reshape(V.shape[0], ncart(la), ncart(lb))
 
 
-def _assemble(system: MolecularSystem, class_fn, device) -> torch.Tensor:
+def _positions(system: MolecularSystem, device, positions) -> torch.Tensor:
+    """``positions`` when given (a tensor autograd may follow), else the
+    system's own geometry on ``device``."""
+    return _t(system.positions, device) if positions is None else positions
+
+
+def _assemble(system: MolecularSystem, class_fn, device, positions=None) -> torch.Tensor:
     nao = system.n_basis_cart()
-    positions = _t(system.positions, device)
+    positions = _positions(system, device, positions)
     out = torch.zeros((nao, nao), dtype=torch.float64, device=device)
     classes = system.shell_classes
     for la, ca in classes.items():
@@ -117,25 +128,27 @@ def _assemble(system: MolecularSystem, class_fn, device) -> torch.Tensor:
     return out
 
 
-def overlap(system: MolecularSystem, device) -> torch.Tensor:
+def overlap(system: MolecularSystem, device, positions=None) -> torch.Tensor:
     """Full AO overlap matrix S (nao, nao), nao of the working basis."""
     return _assemble(
         system,
         lambda la, lb, a, b, cc, A, B, AB, pos: _overlap_class(la, lb, a, b, cc, AB),
         device,
+        positions,
     )
 
 
-def kinetic(system: MolecularSystem, device) -> torch.Tensor:
+def kinetic(system: MolecularSystem, device, positions=None) -> torch.Tensor:
     """Full AO kinetic-energy matrix T (nao, nao)."""
     return _assemble(
         system,
         lambda la, lb, a, b, cc, A, B, AB, pos: _kinetic_class(la, lb, a, b, cc, AB),
         device,
+        positions,
     )
 
 
-def nuclear(system: MolecularSystem, device) -> torch.Tensor:
+def nuclear(system: MolecularSystem, device, positions=None) -> torch.Tensor:
     """Full AO nuclear-attraction matrix V (nao, nao)."""
     charges = _t(system.charges, device)
     return _assemble(
@@ -144,6 +157,7 @@ def nuclear(system: MolecularSystem, device) -> torch.Tensor:
             la, lb, a, b, cc, A, B, AB, charges, pos
         ),
         device,
+        positions,
     )
 
 

@@ -6,10 +6,11 @@ Molecule JSON format matches ``data/mol/*.json``: a list of
 in Bohr. Shells are grouped into **classes by angular momentum l**, each
 class a set of flat arrays padded to the class's max contraction degree, so
 every integral class (la, lb[, lc, ld]) is one batched tensor computation.
-numpy only. ``spherical=True`` adds the (nao_cart, nao_sph) transform
-``sph_T`` (``ops/spherical.py``): the integrals are still computed over
-Cartesian Gaussians and projected onto the 2l+1 solid harmonics of each
-shell, and ``n_basis()`` counts the working (spherical) basis.
+numpy only, but for the tensor ``nuclear_repulsion``. ``spherical=True``
+adds the (nao_cart, nao_sph) transform ``sph_T`` (``ops/spherical.py``):
+the integrals are still computed over Cartesian Gaussians and projected
+onto the 2l+1 solid harmonics of each shell, and ``n_basis()`` counts the
+working (spherical) basis.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from qchem_rs_tpu_torch.ops.angular import component_norms, double_factorial, ncart
 from qchem_rs_tpu_torch.ops.spherical import nsph, system_transform
@@ -67,6 +69,18 @@ class ShellClass:
     @property
     def K(self) -> int:
         return self.alphas.shape[1]
+
+
+def nuclear_repulsion(charges: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The point-charge repulsion as a tensor that autograd can follow
+    through ``positions`` (natom, 3) (port of
+    ``qchem_rs_tpu/parallel/sweep.py::nuclear_repulsion_jnp``)."""
+    n = len(charges)
+    eye = torch.eye(n, dtype=positions.dtype, device=positions.device)
+    diff = positions[:, None, :] - positions[None, :, :]
+    dist = torch.sqrt((diff * diff).sum(-1) + eye)
+    zz = charges[:, None] * charges[None, :]
+    return 0.5 * ((1.0 - eye) * zz / dist).sum()
 
 
 def _primitive_norm(alpha: np.ndarray, l: int) -> np.ndarray:
@@ -208,6 +222,12 @@ class MolecularSystem:
 
     def n_electrons(self, charge: int = 0) -> int:
         return int(sum(a.ordinal for a in self.atoms)) - charge
+
+    def with_positions(self, positions: np.ndarray) -> "MolecularSystem":
+        """The same atoms and basis at another geometry (Bohr)."""
+        atoms = [Atom(a.ordinal, np.asarray(p, dtype=np.float64))
+                 for a, p in zip(self.atoms, positions)]
+        return MolecularSystem(atoms, self.basis, spherical=self.spherical)
 
     def nuclear_repulsion(self) -> float:
         """Classical point-charge repulsion (rhf.rs:110-122)."""

@@ -1,9 +1,10 @@
-"""Port parity, CLI: the port's ``rhf``, ``uhf``, ``mp2``, ``ccsd``,
-``fci``, ``cis``, ``eom`` and ``info`` subcommands on the CPU (``--device
-cpu``) against the JAX CLI run in process as tests/test_cli.py runs it:
-every printed line equal, but for the wall time and the SCF iteration
-count on the first line; and the port's checkpoint, resume, trace and
-verbose flags."""
+"""Port parity, CLI: the port's ``rhf`` (with ``--gradient`` and
+``--polarizability``), ``uhf``, ``mp2``, ``ccsd``, ``fci``, ``cis``, ``eom``,
+``optimize``, ``frequencies`` and ``info`` subcommands on the CPU
+(``--device cpu``) against the JAX CLI run in process as tests/test_cli.py
+runs it: every printed line equal, but for the wall time and the SCF
+iteration count on the first line; and the port's checkpoint, resume,
+trace and verbose flags."""
 
 import glob
 import os
@@ -156,3 +157,41 @@ def test_post_hf_prints_the_jax_lines(capsys, case):
     rc, out = _run(cli.main, argv, capsys, ("--device", "cpu"))
     assert rc == rc_ref == 0
     assert len(out) >= 3 and _post_hf_printed(out) == _post_hf_printed(ref)
+
+
+GEOMETRY_CASES = {
+    "rhf gradient": ["rhf", *_files("water"), "--epsilon", "1e-11", "--max-iterations", "200",
+                     "--gradient"],
+    "rhf polarizability": ["rhf", *_files("water"), "--epsilon", "1e-10", "--polarizability"],
+    "optimize": ["optimize", *_files("hydrogen"), "--epsilon", "1e-11", "--gtol", "1e-7"],
+    "frequencies thermo": ["frequencies", *_files("hydrogen"), "--epsilon", "1e-11", "--thermo",
+                           "--symmetry-number", "2"],
+}
+
+
+def _geometry_printed(lines):
+    """The lines with the first one's elapsed time and count masked (SCF
+    iterations, or the optimizer's evaluations), negative zeros read as
+    zero, and the optimizer's final max |gradient| (below 1e-6 at --gtol
+    1e-7) masked: L-BFGS-B's path past its first, 1-Bohr trial step turns
+    on gradient differences of 1e-16, so the two packages take 7 or 8
+    evaluations to the same geometry and energy (to their printed digits)
+    and stop at residuals of 1e-10 to 1e-9 that differ."""
+    first = re.sub(r"\d+\.\d\ds$", "<t>s", lines[0])
+    first = re.sub(r"after \d+ (iterations|energy/gradient)", r"after <n> \1", first)
+    rest = []
+    for line in lines[1:]:
+        m = re.fullmatch(r"max \|gradient\|: (\S+) Hartree/Bohr", line)
+        if m and float(m.group(1)) < 1e-6:
+            line = "max |gradient|: <1e-6 Hartree/Bohr"
+        rest.append(_unsigned_zeros(line))
+    return [first] + rest
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
+def test_geometry_tier_prints_the_jax_lines(capsys, case):
+    argv = GEOMETRY_CASES[case]
+    rc_ref, ref = _run(jax_cli.main, argv, capsys)
+    rc, out = _run(cli.main, argv, capsys, ("--device", "cpu"))
+    assert rc == rc_ref == 0
+    assert len(out) >= 4 and _geometry_printed(out) == _geometry_printed(ref)

@@ -1,8 +1,9 @@
 """Both hand-written CUDA kernels against their plain twins on the card,
 the port's RHF through them, bitwise repeats (kernel 2, the direct build's
 J and K, whole RHF runs in each Fock mode, and CCSD(T)), MP2 and CCSD(T)
-on the card against the port on the CPU, and a closed-shell CCSD step and
-(T) on seeded inputs on the card against the CPU. These need an NVIDIA GPU with nvcc (the
+on the card against the port on the CPU, a closed-shell CCSD step and
+(T) on seeded inputs on the card against the CPU, and the RHF nuclear
+gradient on the card against the CPU and repeated in equal bits. These need an NVIDIA GPU with nvcc (the
 kernels are built at first use) and skip elsewhere:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -317,3 +318,21 @@ def test_ccsd_t_twice_on_card_is_bitwise_equal(cuda):
     assert a.correlation_energy == b.correlation_energy
     assert a.triples_correction == b.triples_correction and a.iterations == b.iterations
     assert abs(a.total_energy() - cpu.total_energy()) <= 1e-10
+
+
+@pytest.mark.parametrize("mode", ["incore", "pair"])
+def test_rhf_gradient_on_card_matches_cpu(cuda, mode):
+    """Water/6-31G: the card's analytic gradient against the port's on the
+    CPU within 1e-10 Eh/Bohr, and two card runs on the same SCF output
+    equal in bits."""
+    from qchem_rs_tpu_torch import rhf_gradient
+
+    system = MolecularSystem.load(os.path.join(DATA, "mol", "water.json"),
+                                  BasisSet.load(os.path.join(DATA, "basis", "6-31G.json")))
+    cfg = HartreeFockConfig(epsilon=1e-11, max_iterations=200, fock_mode=mode)
+    out = restricted_hartree_fock(system, cfg, device=cuda)
+    g = rhf_gradient(system, cfg, output=out, device=cuda)
+    again = rhf_gradient(system, cfg, output=out, device=cuda)
+    cpu = rhf_gradient(system, cfg, output=out, device="cpu")
+    assert np.abs(g - cpu).max() <= 1e-10
+    assert np.array_equal(g, again)
