@@ -68,14 +68,29 @@ pair-mode gradient; UHF OH/6-31G's gradient, card against CPU; water/
 cc-pVDZ optimized, then its harmonic frequencies and thermochemistry, and
 the CLI's ``frequencies --opt-first --thermo`` as a subprocess; static
 polarizabilities of benzene (in core and pair) and naphthalene (pair);
-and the CLI's ``rhf --gradient --polarizability``. Every phase
+and the CLI's ``rhf --gradient --polarizability``. Then the multi-device
+tier: ``conformer_sweep`` over four benzene/cc-pVDZ conformers (the atoms
+scaled about their centre by 0.98-1.04; the main path of this tier, both
+kernels counted over it; each energy equal in bits to a single run), the
+chained sweep over them (within 1e-9) and over naphthalene/cc-pVDZ scaled
+1.00-1.02 in pair and direct mode (within 1e-9 of fresh runs); the three
+sharded builders (direct, pair-space, column-sharded) through a real NCCL
+group of one rank on naphthalene (J/K within 1e-12 relative of the
+unsharded pair build, RHF within 1e-9 Eh, the direct run repeated in
+equal bits, each builder's prepare and J/K time and peak memory), sharded
+MP2 through both pair builders, rank views of 4 and 3 on the one card
+(their shares added in rank order; the column slabs reassembling V2f; the
+pair slabs V2f's and W's columns in equal bits); and the CLI's ``sweep``
+and ``sweep --chain`` as subprocesses. NCCL between cards is not run:
+there is one card. Every phase
 fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
 high-L part at the ferrocene build's; ``launches_rhf_ccsd_t`` counts the
 benzene RHF + CCSD(T) path, ``launches_rhf_gradient`` the benzene RHF +
-gradient path); the last line is a JSON object naming the device.
+gradient path, ``launches_sweep`` the benzene conformer sweep); the last
+line is a JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -113,6 +128,9 @@ WATER_MP2_E = -76.23465834212983
 WATER_CCSD_CORR = -0.21651175874440504
 WATER_CCSD_T = -0.0032255204357757436
 WATER_CCSD_T_E = -76.2468763503677
+# naphthalene/cc-pVDZ MP2 (frozen 0) on its pair SCF at diag_rms 1e-10, the
+# port's value on an H100 (in core and pair space agree to 1.3e-15)
+NAPHTHALENE_MP2_CORR = -1.357088035186
 KERNEL1_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
@@ -1662,11 +1680,321 @@ def cli_gradient_polarizability(Q) -> None:
         fail(f"the CLI's rhf --gradient --polarizability did not print {missing}")
 
 
+def benzene_conformers(Q):
+    """(system, config, geometries): benzene/cc-pVDZ with its atoms scaled
+    about their centre by 0.98, 1.00, 1.02 and 1.04, in core from Hückel
+    to diag_rms 1e-11 (at 1e-10 the stop alone left a chained energy
+    1.01e-9 Eh from the sweep's on an H100)."""
+    system = load_system(Q, "benzene")
+    pos = np.asarray(system.positions)
+    centre = pos.mean(axis=0)
+    geoms = np.stack([centre + s * (pos - centre) for s in (0.98, 1.0, 1.02, 1.04)])
+    drift = float(np.linalg.norm(geoms - pos, axis=2).max())
+    print(f"benzene/cc-pVDZ conformers: scales 0.98-1.04, largest atom drift {drift:.3f} Bohr "
+          "from the file's geometry", flush=True)
+    return system, Q.HartreeFockConfig(epsilon=1e-11, max_iterations=150), geoms
+
+
+def conformer_sweep_phase(Q, kernels: dict, paths: dict):
+    """The slice's main path: ``conformer_sweep`` over four benzene
+    conformers on the one-device mesh, both kernels counted over it; each
+    energy equal in bits to a ``restricted_hartree_fock`` run at that
+    geometry. Returns (system, config, geometries, energies, launches,
+    iterations of the single runs)."""
+    from qchem_rs_tpu_torch.parallel.sweep import conformer_sweep
+
+    system, cfg, geoms = benzene_conformers(Q)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    energies, converged = conformer_sweep(system, geoms, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"conformer_sweep benzene/cc-pVDZ x{len(geoms)} in core: energies "
+          f"{[f'{e:.10f}' for e in energies]}, converged {converged.tolist()}, wall {wall:.4f} s "
+          f"({wall / len(geoms):.4f} s a conformer), peak device memory {peak / 1e9:.3f} GB; "
+          f"launches {launches}", flush=True)
+    if not converged.all():
+        fail("a benzene conformer did not converge in the sweep")
+    if launches["eri_tile"] == 0 or launches["fock_matvec"] == 0:
+        fail(f"the conformer sweep bypassed a kernel: {launches}")
+    singles = [Q.restricted_hartree_fock(system.with_positions(g), cfg, device="cuda")
+               for g in geoms]
+    same = [e == o.total_energy() for e, o in zip(energies, singles)]
+    print(f"conformer_sweep - single runs: bits equal {same}; iterations "
+          f"{[o.iterations for o in singles]}", flush=True)
+    if not all(same):
+        fail("the conformer sweep's energies differ from single runs at the same geometries")
+    paths["conformer sweep benzene incore"] = dict(launches, wall_s=wall, peak_bytes=peak)
+    return system, cfg, geoms, energies, launches, [o.iterations for o in singles]
+
+
+def chained_phase(Q, kernels: dict, paths: dict, sweep) -> np.ndarray:
+    """``chained_sweep`` over the benzene conformers in core (each energy
+    within 1e-9 of the sweep's; the chain's iterations against the single
+    runs', a finding), and over naphthalene/cc-pVDZ scaled 1.00, 1.01,
+    1.02 in pair and in direct mode from SAD to diag_rms 1e-12 (each
+    within 1e-9 of a fresh run at that geometry). Returns the benzene
+    chain's energies."""
+    from qchem_rs_tpu_torch.parallel.sweep import chained_sweep, rhf_energy_fn
+
+    system, cfg, geoms, energies, _, single_iterations = sweep
+    reset(kernels)
+    t0 = time.perf_counter()
+    chain, converged = chained_sweep(system, geoms, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(kernels)
+    # the same chain by hand, for its iteration counts
+    fn, guess, iterations, again = rhf_energy_fn(system, cfg, "cuda"), None, [], []
+    for g in geoms:
+        total, _, it, density = fn(g, guess)
+        guess = density
+        iterations.append(it)
+        again.append(total)
+    gap = float(np.abs(chain - energies).max())
+    print(f"chained_sweep benzene/cc-pVDZ in core: wall {wall:.4f} s, largest |chain - sweep| "
+          f"{gap:.2e} Eh, iterations {iterations} (total {sum(iterations)}) against "
+          f"{single_iterations} (total {sum(single_iterations)}) from Hückel; launches {launches}",
+          flush=True)
+    if not converged.all() or gap > 1e-9 or list(chain) != again:
+        fail("the benzene chain misses the sweep's energies or its own repeat")
+    paths["chained sweep benzene incore"] = dict(launches, wall_s=wall)
+    naph = load_system(Q, "naphthalene")
+    pos = np.asarray(naph.positions)
+    centre = pos.mean(axis=0)
+    ngeoms = np.stack([centre + s * (pos - centre) for s in (1.0, 1.01, 1.02)])
+    for mode in ("pair", "direct"):
+        # diag_rms 1e-12: at 1e-10 the stop alone left the pair chain 3.2e-9 Eh
+        # from the fresh runs on an H100
+        ncfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=200, fock_mode=mode,
+                                   initial_guess="sad")
+        reset(kernels)
+        t0 = time.perf_counter()
+        nchain, nconv = chained_sweep(naph, ngeoms, ncfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_of(kernels)
+        fresh = [Q.restricted_hartree_fock(naph.with_positions(g), ncfg, device="cuda")
+                 for g in ngeoms]
+        gap = float(np.abs(nchain - [o.total_energy() for o in fresh]).max())
+        print(f"chained_sweep naphthalene/cc-pVDZ {mode} x3: wall {wall:.4f} s, largest |chain - "
+              f"fresh| {gap:.2e} Eh; fresh iterations {[o.iterations for o in fresh]}, fresh "
+              f"total_s {sum(o.timings['total_s'] for o in fresh):.4f}; launches {launches}",
+              flush=True)
+        if not nconv.all() or gap > 1e-9:
+            fail(f"the naphthalene {mode} chain misses the fresh runs' energies")
+        paths[f"chained sweep naphthalene {mode}"] = dict(launches, wall_s=wall)
+    return chain
+
+
+def scf_through(Q, system, cfg, builder) -> tuple:
+    """The port's ``_rhf_scf`` from SAD with G = J - K/2 of ``builder``:
+    (total energy, the SCF result)."""
+    from qchem_rs_tpu_torch.models.rhf import _rhf_scf, core_hamiltonian
+    from qchem_rs_tpu_torch.models.sad import sad_guess
+    from qchem_rs_tpu_torch.utils import interop
+
+    S, H, X, _ = core_hamiltonian(system, "cuda")
+    D0 = interop.density_guess(sad_guess(system), system.n_basis(), 1, "cuda")
+
+    def g_fn(D):
+        J, K = builder.jk(D)
+        return J - 0.5 * K
+
+    st = _rhf_scf(H, X, S, system.n_electrons(0) // 2, cfg, g_fn, D0)
+    return st.energy + system.nuclear_repulsion(), st
+
+
+def nccl_phases(Q, kernels: dict, paths: dict, naphthalene) -> None:
+    """The three sharded builders through a real NCCL group of size 1 on
+    naphthalene/cc-pVDZ (M = 19136): J and K of the pair SCF density
+    within 1e-12 relative of the unsharded pair builder's, an RHF through
+    each (SAD, diag_rms 1e-10) within 1e-9 Eh of the pair run, the
+    streaming builder's run repeated in equal bits, each builder's prepare
+    and J/K time and peak memory; then MP2 through both sharded pair
+    builders within 1e-9 of its anchor. The group is destroyed at the
+    end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder, PairSpaceShardedFockBuilder
+    from qchem_rs_tpu_torch.parallel.fock_sharded import ShardedFockBuilder
+    from qchem_rs_tpu_torch.parallel.mesh import data_mesh
+    from qchem_rs_tpu_torch.parallel.v2_sharded import ColumnShardedPairFockBuilder
+
+    system, cfg, out = naphthalene
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = data_mesh(device="cuda")
+        print(f"NCCL group: backend {dist.get_backend()}, size {mesh.size}, device {mesh.device}",
+              flush=True)
+        D = torch.as_tensor(out.density, device="cuda")
+        J_ref, K_ref = PairSpaceFockBuilder(system, 1e-12, device="cuda").jk(D)
+        scf_cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=200)
+        for name, cls in (("ShardedFockBuilder", ShardedFockBuilder),
+                          ("PairSpaceShardedFockBuilder", PairSpaceShardedFockBuilder),
+                          ("ColumnShardedPairFockBuilder", ColumnShardedPairFockBuilder)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset(kernels)
+            t0 = time.perf_counter()
+            builder = cls(system, mesh, 1e-12)
+            if hasattr(builder, "prepare"):
+                builder.prepare()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            J, K = builder.jk(D)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            builder.jk(D)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t2
+            t2 = time.perf_counter()
+            dJ, dK = rel_err(J, J_ref)[1], rel_err(K, K_ref)[1]
+            e, st = scf_through(Q, system, scf_cfg, builder)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            launches = launches_of(kernels)
+            peak = torch.cuda.max_memory_allocated()
+            dE = e - out.total_energy()
+            print(f"{name} over NCCL (1 rank): prepare {t1 - t0:.4f} s, J/K {t2 - t1 - warm:.4f} s "
+                  f"first, {warm:.4f} s again, "
+                  f"RHF {t3 - t2:.4f} s ({st.passes - 1} iterations, E {e:.10f}, dE {dE:.2e} "
+                  f"from the pair run); J, K rel. err {dJ:.2e}, {dK:.2e}; peak device memory "
+                  f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
+            if not st.converged or max(dJ, dK) > 1e-12 or abs(dE) > 1e-9 or launches["eri_tile"] == 0:
+                fail(f"{name} over NCCL misses the unsharded J/K or energy")
+            paths[f"nccl {name} naphthalene"] = dict(launches, prepare_s=t1 - t0, jk_s=warm,
+                                                     rhf_s=t3 - t2, peak_bytes=peak)
+            if cls is ShardedFockBuilder:
+                e2, st2 = scf_through(Q, system, scf_cfg, builder)
+                same = e2 == e and torch.equal(st2.density, st.density)
+                print(f"{name} RHF twice: energy and density bits equal {same}", flush=True)
+                if not same:
+                    fail("two sharded direct RHF runs differ")
+            del builder
+        for cls in (PairSpaceShardedFockBuilder, ColumnShardedPairFockBuilder):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset(kernels)
+            res = Q.mp2_pair_space(system, cfg, output=out, device="cuda",
+                                   builder=cls(system, mesh, 1e-12))
+            torch.cuda.synchronize()
+            launches = launches_of(kernels)
+            d = res.correlation_energy - NAPHTHALENE_MP2_CORR
+            print(f"MP2 naphthalene/cc-pVDZ through {cls.__name__} over NCCL: correlation "
+                  f"{res.correlation_energy:.12f} ({d:.2e} from the anchor), eri_s "
+                  f"{res.timings['eri_s']:.4f}, transform_s {res.timings['transform_s']:.4f}, "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+                  f"{launches}", flush=True)
+            if abs(d) > 1e-9 or launches["eri_tile"] == 0:
+                fail(f"sharded MP2 through {cls.__name__} misses its anchor")
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_view_phases(Q, naphthalene) -> None:
+    """Rank views of 4 and 3 on the one card, naphthalene/cc-pVDZ: the
+    streaming builder's shares add up (in rank order) to the unsharded
+    direct J/K; the column builder's slabs, placed through colperm, are
+    the mirrored V2f with every padding column unwritten; the pair
+    builder's slabs are V2f's and W's columns in equal bits (3 ranks do
+    not divide M and raise)."""
+    from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder, PairSpaceShardedFockBuilder
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+    from qchem_rs_tpu_torch.parallel.fock_sharded import ShardedFockBuilder
+    from qchem_rs_tpu_torch.parallel.mesh import rank_view
+    from qchem_rs_tpu_torch.parallel.v2_sharded import ColumnShardedPairFockBuilder
+
+    system, _, out = naphthalene
+    D = torch.as_tensor(out.density, device="cuda")
+    engine = TiledEriEngine(system, 1e-12, device="cuda")
+    J_ref, K_ref = StreamingFockBuilder(system, 1e-12, device="cuda", engine=engine).jk(D)
+    pair = PairSpaceFockBuilder(system, 1e-12, device="cuda", engine=engine, lean=False)
+    V2f, W = pair.prepare()
+    for size in (4, 3):
+        views = [ShardedFockBuilder(system, rank_view(size, r), 1e-12, engine=engine)
+                 for r in range(size)]
+        J = K = 0.0
+        for view in views:
+            Jr, Kr = view.jk_partial(D)
+            J, K = J + Jr, K + Kr
+        dJ, dK = rel_err(J, J_ref)[1], rel_err(K, K_ref)[1]
+        print(f"ShardedFockBuilder, {size} rank views: tiles {[sum(len(b[2]) for b in v.batches) for v in views]}; "
+              f"J, K rel. err {dJ:.2e}, {dK:.2e}", flush=True)
+        if max(dJ, dK) > 1e-12:
+            fail(f"{size} streaming rank views do not add up to the direct J/K")
+        scale = float(V2f.abs().max())
+        worst, unwritten = 0.0, True
+        for r in range(size):
+            view = ColumnShardedPairFockBuilder(system, rank_view(size, r), 1e-12, engine=engine)
+            t0 = time.perf_counter()
+            slab = view.v2f_slab()
+            torch.cuda.synchronize()
+            own = torch.as_tensor(view.colperm[r] >= 0, device="cuda")
+            cols = torch.as_tensor(view.colperm[r][view.colperm[r] >= 0], device="cuda")
+            if cols.numel():
+                worst = max(worst, float((slab[:, own] - V2f[:, cols]).abs().max()) / scale)
+            unwritten = unwritten and not bool(slab[:, ~own].any())
+            print(f"ColumnShardedPairFockBuilder rank {r} of {size}: slab {tuple(slab.shape)}, "
+                  f"{int(own.sum())} live columns, load {view.loads[r]:.4e} FLOP, build "
+                  f"{time.perf_counter() - t0:.4f} s", flush=True)
+            del slab
+        print(f"ColumnShardedPairFockBuilder, {size} rank views: slabs - V2f rel. err "
+              f"{worst:.2e}; padding columns unwritten {unwritten}", flush=True)
+        if worst > 1e-12 or not unwritten:
+            fail(f"{size} column rank views do not reassemble V2f")
+    for r in range(4):
+        view = PairSpaceShardedFockBuilder(system, rank_view(4, r), 1e-12, engine=engine)
+        slab, Wc = view.prepare()
+        same = torch.equal(slab, V2f[:, view.cols]) and torch.equal(Wc, W[:, view.cols])
+        print(f"PairSpaceShardedFockBuilder rank {r} of 4: columns {view.cols.start}-"
+              f"{view.cols.stop}, V2f and W columns bits equal {same}", flush=True)
+        if not same:
+            fail("a pair rank view's slabs are not V2f's and W's columns")
+        del slab, Wc, view
+    try:
+        PairSpaceShardedFockBuilder(system, rank_view(3, 0), 1e-12, engine=engine)
+    except ValueError as e:
+        print(f"PairSpaceShardedFockBuilder, 3 rank views: {e}", flush=True)
+    else:
+        fail("the pair builder took 3 ranks, which do not divide M")
+
+
+def cli_sweep(geoms: np.ndarray, energies: np.ndarray, chain: np.ndarray) -> None:
+    """The CLI's sweep and sweep --chain on the benzene conformers, as
+    subprocesses: their conformer lines equal the in-process energies as
+    printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "conformers.json")
+        with open(path, "w") as f:
+            json.dump(geoms.tolist(), f)
+        for flags, values in (([], energies), (["--chain"], chain)):
+            lines = cli_run([sys.executable, "-m", "qchem_rs_tpu_torch.cli", "sweep", "-b",
+                             "data/basis/cc-pVDZ.json", "-m", "data/mol/benzene.json", "-g", path,
+                             "--epsilon", "1e-11", "--max-iterations", "150", *flags])
+            want = [f"conformer {i}: {e:.8f}" for i, e in enumerate(values)]
+            if lines[1:] != want:
+                fail(f"the CLI's sweep {flags} printed {lines[1:]}, not {want}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     import qchem_rs_tpu_torch as Q
     from qchem_rs_tpu_torch.ops import eri_kernel, fock_matvec
     from qchem_rs_tpu_torch.ops.angular import ncart
@@ -1793,6 +2121,28 @@ def main(argv: list[str]) -> int:
     cli_gradient_polarizability(Q)
     post_hf_launches = paths["rhf + ccsd(t) benzene incore sad"]
     grad_launches = paths["rhf + gradient benzene incore sad"]
+
+    # 11. the multi-device tier: the conformer sweep (this slice's main
+    # path) and the chained sweeps, the sharded builders through a real
+    # NCCL group of one rank and as rank views on the one card, sharded
+    # MP2, and the CLI's sweep
+    walls = [time.perf_counter()]
+    sweep = conformer_sweep_phase(Q, named, paths)
+    sweep_launches = sweep[4]
+    walls.append(time.perf_counter())
+    chain = chained_phase(Q, named, paths, sweep)
+    walls.append(time.perf_counter())
+    nccl_phases(Q, named, paths, naphthalene)
+    walls.append(time.perf_counter())
+    rank_view_phases(Q, naphthalene)
+    walls.append(time.perf_counter())
+    cli_sweep(sweep[2], sweep[3], chain)
+    walls.append(time.perf_counter())
+    print("multi-device tier: " + ", ".join(
+        f"{name} {b - a:.1f} s" for name, a, b in zip(
+            ("sweep", "chains", "NCCL builders and MP2", "rank views", "CLI sweep"),
+            walls, walls[1:])) + f"; {walls[-1] - walls[0]:.1f} s in all", flush=True)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"paths": paths}), flush=True)
 
     print(json.dumps({"kernels": [
@@ -1801,6 +2151,7 @@ def main(argv: list[str]) -> int:
          "launches_per_run": launches["eri_tile"],
          "launches_rhf_ccsd_t": post_hf_launches["eri_tile"],
          "launches_rhf_gradient": grad_launches["eri_tile"],
+         "launches_sweep": sweep_launches["eri_tile"],
          "max_abs_err": max(k1_abs, k1["max_abs_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
@@ -1817,7 +2168,8 @@ def main(argv: list[str]) -> int:
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],
          "launches_per_run": launches["fock_matvec"],
          "launches_rhf_ccsd_t": post_hf_launches["fock_matvec"],
-         "launches_rhf_gradient": grad_launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
+         "launches_rhf_gradient": grad_launches["fock_matvec"],
+         "launches_sweep": sweep_launches["fock_matvec"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]}), flush=True)

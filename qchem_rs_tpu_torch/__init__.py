@@ -21,9 +21,12 @@ and UHF nuclear gradients (``models/gradients.py``, with the derivative
 integrals segment by segment in pair space, ``models/gradients_pair.py``),
 geometry optimization (``models/optimize.py``), harmonic frequencies
 (``models/hessian.py``), RRHO thermochemistry (``models/thermo.py``) and
-static and dynamic polarizabilities (``models/response.py``); and the
-``rhf`` (with ``--gradient`` and ``--polarizability``), ``uhf``, ``mp2``,
-``ccsd``, ``fci``, ``eom``, ``cis``, ``optimize``, ``frequencies`` and
+static and dynamic polarizabilities (``models/response.py``); the
+multi-device tier over ``torch.distributed`` (``parallel/``: the process
+mesh, the sharded direct, pair-space and column-sharded Fock builders,
+sharded MP2, conformer and chained sweeps); and the ``rhf`` (with
+``--gradient`` and ``--polarizability``), ``uhf``, ``mp2``, ``ccsd``,
+``fci``, ``eom``, ``cis``, ``optimize``, ``frequencies``, ``sweep`` and
 ``info`` subcommands of the CLI. Everything is float64, and the SCF,
 CCSD(T) and the nuclear gradient repeat bit for bit on the same inputs.
 Every entry point takes an explicit ``device``; CPU tensors run each

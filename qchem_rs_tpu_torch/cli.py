@@ -1,7 +1,7 @@
 """Command-line interface of the port: the ``rhf`` (with ``--gradient``
 and ``--polarizability``), ``uhf``, ``mp2``, ``ccsd``, ``fci``, ``eom``,
-``cis``, ``optimize``, ``frequencies`` and ``info`` subcommands of
-``qchem_rs_tpu/cli.py``.
+``cis``, ``optimize``, ``frequencies``, ``sweep`` and ``info``
+subcommands of ``qchem_rs_tpu/cli.py``.
 
     python -m qchem_rs_tpu_torch.cli rhf -b data/basis/cc-pVDZ.json \\
         -m data/mol/naphthalene.json --epsilon 1e-8 --fock-mode pair --guess sad
@@ -22,6 +22,8 @@ and ``--polarizability``), ``uhf``, ``mp2``, ``ccsd``, ``fci``, ``eom``,
     python -m qchem_rs_tpu_torch.cli frequencies -b data/basis/cc-pVDZ.json \\
         -m data/mol/water.json --epsilon 1e-10 --opt-first --thermo
     python -m qchem_rs_tpu_torch.cli info -b data/basis/6-31G.json -m data/mol/methane.json
+    torchrun --nproc_per_node=4 -m qchem_rs_tpu_torch.cli sweep -b data/basis/cc-pVDZ.json \\
+        -m data/mol/benzene.json -g conformers.json --epsilon 1e-8
 
 Every SCF subcommand takes the JAX CLI's common flags (``--charge``,
 ``--mixing``, ``--level-shift``, ``--field``, ``--checkpoint``,
@@ -514,6 +516,48 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_sweep(args) -> int:
+    """RHF over a batch of geometries of one molecule, or, with
+    ``--chain``, one after another, each warm-started from the previous
+    converged density. Under ``torchrun --nproc_per_node=N`` the
+    conformers are shared over the N processes (``--chain`` runs the whole
+    chain in each); only rank 0 prints."""
+    import json
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from qchem_rs_tpu_torch.parallel.mesh import data_mesh, distributed_init
+    from qchem_rs_tpu_torch.parallel.sweep import chained_sweep, conformer_sweep
+    from qchem_rs_tpu_torch.utils.profiling import trace
+
+    joined = distributed_init(_device(args.device))
+    try:
+        system, cfg, device = _build(args)
+        mesh = data_mesh(device=device)
+        try:
+            with open(args.geometries) as f:
+                geoms = np.asarray(json.load(f), dtype=np.float64)  # (nconf, natom, 3)
+        except (OSError, ValueError) as e:
+            raise CliError(f"cannot load geometries {args.geometries!r}: {e}") from e
+        start = time.perf_counter()
+        with trace(args.trace_dir):
+            if args.chain:
+                energies, converged = chained_sweep(system, geoms, cfg, device=mesh.device)
+            else:
+                energies, converged = conformer_sweep(system, geoms, cfg, mesh)
+        elapsed = time.perf_counter() - start
+        if mesh.rank == 0:
+            print(f"swept {len(geoms)} conformers in {elapsed:0.2f}s")
+            for i, (e, c) in enumerate(zip(energies, converged)):
+                flag = "" if c else "  (NOT CONVERGED)"
+                print(f"conformer {i}: {e:.8f}{flag}")
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    return 0
+
+
 def _common_flags(p: argparse.ArgumentParser, uhf: bool) -> None:
     """The common flags of ``qchem_rs_tpu/cli.py`` that the port runs, and
     ``--device``."""
@@ -660,6 +704,16 @@ def main(argv=None) -> int:
     p.add_argument("--symmetry-number", type=int, default=1,
                    help="rotational symmetry number sigma")
     p.set_defaults(fn=cmd_frequencies)
+    p = sub.add_parser("sweep", help="batched conformer sweep (RHF); under torchrun "
+                       "--nproc_per_node=N the conformers are shared over N devices and only "
+                       "rank 0 prints")
+    _common_flags(p, uhf=False)
+    p.add_argument("--geometries", "-g", required=True,
+                   help="JSON (nconf, natom, 3) positions in Bohr")
+    p.add_argument("--chain", action="store_true",
+                   help="sequential sweep, each conformer warm-started from the previous "
+                   "density (for correlated scans; every process runs the whole chain)")
+    p.set_defaults(fn=cmd_sweep)
     p = sub.add_parser("info", help="inspect a molecule/basis combination")
     p.add_argument("--basis-set", "-b", required=True)
     p.add_argument("--molecule", "-m", required=True)

@@ -16,7 +16,9 @@ integrals come from either of the port's ERI storage forms:
   over the rows of the mirrored pair matrix V2f, two matrix products. A
   pair-mode builder whose V2f is already prepared (its SCF ran in pair
   mode) is reused; otherwise V2f is built (kernel 1) and mirrored, without
-  W.
+  W. A sharded builder over a mesh (``mp2_pair_space`` only) contracts
+  each rank's column slab and sums the result over the ranks; the other
+  pair-space callers of V2f (``_pair_v2f``) refuse it.
 
 The quarter-transforms and U^T V2f U are plain ``torch`` products: the JAX
 package does them outside any Pallas kernel too. Every entry point runs
@@ -124,7 +126,11 @@ def _pair_transform_matrix(builder, Co: torch.Tensor, Cv: torch.Tensor) -> torch
 
 def _pair_v2f(system, config, device, builder) -> tuple[torch.Tensor, PairSpaceFockBuilder]:
     """The mirrored V2f of ``builder`` (a pair-mode builder's prepared one
-    when there is one), or of a new builder's build."""
+    when there is one), or of a new builder's build. A sharded builder
+    (one with a ``mesh``) raises: it holds a column slab, not V2f."""
+    if hasattr(builder, "mesh"):
+        raise ValueError(f"{type(builder).__name__} holds a column slab of V2f over a mesh, "
+                         "not the whole V2f; only mp2_pair_space contracts against it")
     builder = builder or PairSpaceFockBuilder(system, config.screening_threshold, device=device,
                                               lean=True)
     if builder._prepared is not None:
@@ -218,17 +224,27 @@ def mp2_pair_space(
     """MP2 through the pair-space ERI matrix, with no n^4 tensor:
     (ia|jb) = U^T V2f U. Peak memory is V2f, U and the (no*nv)^2 result.
     ``builder``: a ``PairSpaceFockBuilder`` whose prepared V2f is reused
-    (else V2f is built and mirrored once). A spherical system's C is lifted
-    to the Cartesian AOs of V2f."""
+    (else V2f is built and mirrored once), or a sharded one over a mesh
+    (``PairSpaceShardedFockBuilder``, ``ColumnShardedPairFockBuilder``),
+    whose ``mo_pair_contract`` contracts each rank's column slab and
+    sums the (no*nv)^2 result over the ranks. A spherical system's C is
+    lifted to the Cartesian AOs of V2f."""
     config, out, nocc, nfz, C, eps = _rhf_setup(system, config, frozen, output, device)
     if system.spherical:
         C = torch.as_tensor(system.sph_T, dtype=C.dtype, device=C.device) @ C
+    no, nv = nocc - nfz, C.shape[1] - nocc
     t0 = time.perf_counter()
+    if hasattr(builder, "mo_pair_contract"):
+        builder.v2f_slab()
+        _sync(C.device)
+        t1 = time.perf_counter()
+        U = _pair_transform_matrix(builder, C[:, nfz:nocc], C[:, nocc:])
+        ovov = builder.mo_pair_contract(U).reshape(no, nv, no, nv)
+        return _result(out, _mp2_from_mo(ovov, eps[nfz:nocc], eps[nocc:]), t0, t1, C.device)
     V2f, builder = _pair_v2f(system, config, C.device, builder)
     _sync(C.device)
     t1 = time.perf_counter()
     U = _pair_transform_matrix(builder, C[:, nfz:nocc], C[:, nocc:])
-    no, nv = nocc - nfz, C.shape[1] - nocc
     ovov = (U.T @ (V2f @ U)).reshape(no, nv, no, nv)
     return _result(out, _mp2_from_mo(ovov, eps[nfz:nocc], eps[nocc:]), t0, t1, C.device)
 

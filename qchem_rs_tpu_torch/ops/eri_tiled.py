@@ -331,21 +331,25 @@ class TiledEriEngine:
         return [compact_prims(*pad_group(g, m.npad), perm)
                 for g, m, perm in zip(groups, self.layout.metas, self._prim_orders)]
 
-    def batches(self, twin: bool = False):
-        """Every kernel-1 call of one ``build``: (i1, i2, ti, tj) with the
-        tile lists cut so that one batch stays under BATCH_BYTES — sized for
-        the kernel's output on CUDA, for the twin's R tables on the CPU or
-        when ``twin`` is set."""
-        metas = self.layout.metas
+    def batch_step(self, i1: int, i2: int, twin: bool = False) -> int:
+        """Tiles of class pair (i1, i2) in one kernel-1 call, so that one
+        batch stays under BATCH_BYTES: sized for the kernel's output on
+        CUDA, for the twin's R tables on the CPU or when ``twin`` is set."""
+        m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
         twin = twin or self.device.type != "cuda"
-        for i1, i2, ti, tj in self._tasks:
-            m1, m2 = metas[i1], metas[i2]
-            L = m1.la + m1.lb + m2.la + m2.lb
-            S1, S2 = nhermite(m1.la + m1.lb), nhermite(m2.la + m2.lb)
-            per_tile = m1.tile * m2.tile * m2.a * 8 * (
-                m1.a * (2 * nhermite(L) + 2 * S1 * S2) if twin else m1.A * S2
-            )
-            step = max(1, BATCH_BYTES // per_tile)
+        L = m1.la + m1.lb + m2.la + m2.lb
+        S1, S2 = nhermite(m1.la + m1.lb), nhermite(m2.la + m2.lb)
+        per_tile = m1.tile * m2.tile * m2.a * 8 * (
+            m1.a * (2 * nhermite(L) + 2 * S1 * S2) if twin else m1.A * S2
+        )
+        return max(1, BATCH_BYTES // per_tile)
+
+    def batches(self, twin: bool = False, tasks=None):
+        """Every kernel-1 call of one ``build`` (or over ``tasks``, a list of
+        (i1, i2, ti, tj) in the form of the engine's own): (i1, i2, ti, tj)
+        with the tile lists cut by ``batch_step``."""
+        for i1, i2, ti, tj in self._tasks if tasks is None else tasks:
+            step = self.batch_step(i1, i2, twin)
             for s in range(0, len(ti), step):
                 yield i1, i2, ti[s : s + step], tj[s : s + step]
 

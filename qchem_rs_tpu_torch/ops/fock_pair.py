@@ -26,8 +26,11 @@ density to the Cartesian basis and J and K back, two (nsph, ncart)
 sandwiches (``qchem_rs_tpu/ops/fock_pair.py:344-358``), so kernel 2 still
 reads the Cartesian V2f.
 
-Left out: the TPU's (hi, lo)-f32 split storage and its three programs,
-``exchange_lean_split`` and the sharded builder.
+``PairSpaceShardedFockBuilder`` keeps each rank's column slabs of V2f and
+W over a mesh (``parallel/mesh.py``).
+
+Left out: the TPU's (hi, lo)-f32 split storage and its three programs and
+``exchange_lean_split``.
 """
 
 from __future__ import annotations
@@ -85,16 +88,16 @@ def pair_weights(layout: PairSpaceLayout, nao: int, device):
 
 
 def build_w(V2f: torch.Tensor, pmap2: torch.Tensor, ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
-    """Exchange-ordered W (nao^2, M) from the mirrored V2f,
+    """Exchange-ordered W (nao^2, len(ci)) from the mirrored V2f,
     ``W[(i, k), m] = (i ci_m | k cj_m) + (i cj_m | k ci_m)`` for the AO
-    pair (ci_m, cj_m) of V2 row m: per AO row i one row gather of V2f and
-    two element gathers from it. No (M, M) temporary; peak memory is V2f,
+    pair (ci_m, cj_m) of V2 row m (every row, or the columns that ``ci``
+    and ``cj`` select): per AO row i one row gather of V2f and two element
+    gathers from it. No (M, M) temporary; peak memory is V2f,
     W and two (nao, M) index maps."""
     nao = pmap2.shape[0]
-    M = V2f.shape[1]
     cols_a = pmap2[:, cj]  # [k, m]: V2 row of (k, cj_m)
     cols_b = pmap2[:, ci]
-    W = torch.empty((nao * nao, M), dtype=V2f.dtype, device=V2f.device)
+    W = torch.empty((nao * nao, ci.shape[0]), dtype=V2f.dtype, device=V2f.device)
     for i in range(nao):
         y = V2f[pmap2[i]]  # [j, (kl)] = (ij|kl)
         W[i * nao : (i + 1) * nao] = y[ci, cols_a] + y[cj, cols_b]
@@ -111,6 +114,18 @@ def exchange_lean(V2f: torch.Tensor, pmap2: torch.Tensor, D: torch.Tensor) -> to
         yf = V2f[pmap2[i]][:, pflat].reshape(nao, nao, nao)  # [j, k, l] = (ij|kl)
         K[i] = torch.einsum("jkl,jl->k", yf, D)
     return K
+
+
+def in_working_basis(system: MolecularSystem, D: torch.Tensor, cart_fn):
+    """(J, K) of ``cart_fn`` (Cartesian D -> Cartesian (J, K)) for a
+    density, or a stack of them, in the system's working basis: a
+    spherical D goes through as ``sph_T D sph_T^T`` and J and K come back
+    as ``sph_T^T X sph_T``."""
+    if not system.spherical:
+        return cart_fn(D)
+    T = torch.as_tensor(system.sph_T, dtype=D.dtype, device=D.device)
+    J, K = cart_fn(T @ D @ T.T)
+    return T.T @ J @ T, T.T @ K @ T
 
 
 def pair_budget(device: torch.device) -> float:
@@ -190,8 +205,104 @@ class PairSpaceFockBuilder:
         matrices at first use; a spherical D goes through the Cartesian
         build as ``sph_T D sph_T^T``, and J and K come back as
         ``sph_T^T X sph_T``."""
-        if not self.system.spherical:
-            return self.jk_cart(D, *self.prepare())
-        T = torch.as_tensor(self.system.sph_T, dtype=D.dtype, device=D.device)
-        J, K = self.jk_cart(T @ D @ T.T, *self.prepare())
-        return T.T @ J @ T, T.T @ K @ T
+        return in_working_basis(self.system, D, lambda Dc: self.jk_cart(Dc, *self.prepare()))
+
+
+class ShardedPairJK:
+    """J and K of a builder that holds this rank's columns of the pair
+    matrices (the two sharded pair builders): its ``_partial_cart(D, V2f,
+    W)`` gives this rank's (Jp (M,), K (nao^2,)) products of a Cartesian D,
+    and one ``all_reduce`` each sums them over the ranks."""
+
+    def _finish(self, Jp: torch.Tensor, K: torch.Tensor):
+        nao = self.nao
+        return Jp[self._pmap].reshape(nao, nao), K.reshape(nao, nao)
+
+    def jk_cart(self, D: torch.Tensor, V2f: torch.Tensor, W: torch.Tensor):
+        """J and K (nao, nao) of a symmetric Cartesian D from this rank's
+        columns: local products, one ``all_reduce`` each."""
+        Jp, K = self._partial_cart(D, V2f, W)
+        return self._finish(self.mesh.all_reduce(Jp), self.mesh.all_reduce(K))
+
+    def jk(self, D: torch.Tensor):
+        """J and K of D in the system's working basis."""
+        return in_working_basis(self.system, D, lambda Dc: self.jk_cart(Dc, *self.prepare()))
+
+    def jk_partial(self, D: torch.Tensor):
+        """This rank's share of J and K of D in the working basis, with no
+        collective: over the ranks the shares add up to ``jk(D)``."""
+        return in_working_basis(
+            self.system, D, lambda Dc: self._finish(*self._partial_cart(Dc, *self.prepare())))
+
+
+class PairSpaceShardedFockBuilder(ShardedPairJK, PairSpaceFockBuilder):
+    """Pair-space J/K with the pair axis (M) sharded over a mesh (port of
+    ``qchem_rs_tpu/ops/fock_pair.py:362-414``).
+
+        builder = PairSpaceShardedFockBuilder(system, mesh, 1e-12)
+        V2f_cols, W_cols = builder.prepare()   # (M, M/ndev), (nao^2, M/ndev)
+        J, K = builder.jk(D)                   # local products, one all_reduce each
+
+    Each rank keeps its column slab of the mirrored V2f and its columns of
+    W, ``cols`` = the rank's contiguous M/ndev columns, so the pair
+    matrices take 1/ndev of the memory on each device. Every rank builds
+    the whole V2 (kernel 1) and mirrors it, builds only its own W and V2f
+    columns from it, and frees it: the build's peak is the whole (M, M)
+    V2 on every device, as the JAX package's is on its default device
+    (its "single-device high-water mark"; ``ColumnShardedPairFockBuilder``
+    has none). J_local = V2f[:, cols] @ dJ[cols] and K_local =
+    W[:, cols] @ dK[cols] are plain ``torch.mv`` products (kernel 2 reads
+    a symmetric matrix, which a slab is not), then one ``all_reduce``
+    each. No lean form: W's columns are kept (the lean trade is a
+    one-device concern). M must divide by the mesh size, as in the JAX
+    package, whose pair counts are multiples of 8; the port's are not
+    (water/STO-3G has M = 37), so the mesh sizes that divide M are the
+    ones it runs on.
+    """
+
+    def __init__(self, system: MolecularSystem, mesh, threshold: float = 1e-12, *,
+                 engine: TiledEriEngine | None = None):
+        super().__init__(system, threshold, device=mesh.device, engine=engine, lean=False)
+        if self.M % mesh.size:
+            raise ValueError(f"pair count M={self.M} not divisible by the mesh size {mesh.size}")
+        self.mesh = mesh
+        width = self.M // mesh.size
+        #: this rank's columns of V2f and W
+        self.cols = slice(mesh.rank * width, (mesh.rank + 1) * width)
+        self._slab = None
+
+    def _v2f(self) -> torch.Tensor:
+        """The whole mirrored V2f (kernel 1), built anew."""
+        return mirror_inplace(self.engine.build())
+
+    def prepare(self):
+        """Build V2 (kernel 1) and mirror it, then this rank's V2f and W
+        columns; the whole V2f is freed. Returns (V2f[:, cols],
+        W[:, cols]). Built once."""
+        if self._prepared is None:
+            V2f = self._v2f()
+            W = build_w(V2f, self._pmap.reshape(self.nao, self.nao), self._ci[self.cols],
+                        self._cj[self.cols])
+            self._prepared = (V2f[:, self.cols].clone(), W)
+            self._slab = None
+        return self._prepared
+
+    def _partial_cart(self, D: torch.Tensor, V2f: torch.Tensor, W: torch.Tensor):
+        dJ, dK = self.density_vectors(D)
+        return torch.mv(V2f, dJ[self.cols]), torch.mv(W, dK[self.cols])
+
+    def v2f_slab(self) -> torch.Tensor:
+        """This rank's V2f columns: the prepared ones, or, when only the MO
+        transforms need them (``models/mp2.py``), the slab alone (no W),
+        built once."""
+        if self._prepared is not None:
+            return self._prepared[0]
+        if self._slab is None:
+            self._slab = self._v2f()[:, self.cols].clone()
+        return self._slab
+
+    def mo_pair_contract(self, U: torch.Tensor) -> torch.Tensor:
+        """U^T V2f U (m, m) for an (M, m) MO pair-distribution matrix
+        (``models/mp2.py``): this rank's slab against U's rows of its
+        columns, then one ``all_reduce``."""
+        return self.mesh.all_reduce((U.T @ self.v2f_slab()) @ U[self.cols])

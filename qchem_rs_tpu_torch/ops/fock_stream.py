@@ -43,9 +43,17 @@ A spherical system's densities go through the Cartesian pass as
 ``sph_T D sph_T^T`` and J and K come back as ``sph_T^T X sph_T``
 (``jk_stack``, ``qchem_rs_tpu/ops/fock_stream.py:313-320``).
 
+Over a mesh (``mesh=``, ``parallel/mesh.py``; port of
+``qchem_rs_tpu/ops/fock_stream.py:227-272``) each rank takes an equal
+share, to one tile, of every class pair's screened tile list, digests it
+into local Jp and K1 in the same fixed order, and one ``all_reduce`` each
+sums them per ``jk_stack``. The JAX package pads the shares with sentinel
+tiles of weight 0 because ``shard_map`` needs equal shapes; the port's
+shares need none and are not padded (a repeated tile would be digested
+twice). A rank view's ``jk_partial`` returns its share of J and K.
+
 Left out: the JAX package's ``SEG_UNITS`` segments and sentinel tiles (they
-keep each TPU program under its watchdog), the df/pallas kernel switch and
-the mesh branch.
+keep each TPU program under its watchdog) and the df/pallas kernel switch.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch.nn.functional as F
 
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, ket_contract
-from qchem_rs_tpu_torch.ops.fock_pair import pair_weights
+from qchem_rs_tpu_torch.ops.fock_pair import in_working_basis, pair_weights
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
 
 
@@ -67,12 +75,18 @@ class StreamingFockBuilder:
         builder = StreamingFockBuilder(system, 1e-12, device="cuda")
         J, K = builder.jk(D)                 # D (n, n), working basis
         Js, Ks = builder.jk_stack(Ds)        # Ds (nd, n, n)
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, whose device the builder runs on)
+    shares the tile lists over its ranks.
     """
 
-    def __init__(self, system: MolecularSystem, threshold: float = 1e-12, *, device,
-                 engine: TiledEriEngine | None = None):
+    def __init__(self, system: MolecularSystem, threshold: float = 1e-12, *, device=None,
+                 engine: TiledEriEngine | None = None, mesh=None):
         self.system = system
-        dev = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        dev = mesh.device if mesh is not None else torch.device(device)
         self.nao = nao = system.n_basis_cart()
         self.engine = eng = engine or TiledEriEngine(system, threshold, device=dev)
         layout = eng.layout
@@ -109,10 +123,14 @@ class StreamingFockBuilder:
         for i1, i2, ti, tj in eng._tasks:
             if i1 == i2 and (metas[i1].tile != metas[i2].tile or (tj < ti).any()):
                 raise RuntimeError("same-class tiles must be square and on or above the diagonal")
+        tasks = eng._tasks
+        if mesh is not None:  # this rank's share of each class pair's tiles
+            shares = [mesh.share(len(ti)) for _, _, ti, _ in tasks]
+            tasks = [(i1, i2, ti[s], tj[s]) for (i1, i2, ti, tj), s in zip(tasks, shares)]
         #: every kernel-1 call of one pass: (i1, i2, ti, tj), the V2 build's
         #: batches (the host spends about 2 ms on a batch, so fewer and
-        #: larger batches are faster)
-        self.batches = list(eng.batches())
+        #: larger batches are faster); over a mesh, this rank's share
+        self.batches = list(eng.batches(tasks=tasks))
         # the tile offsets of each batch on the device, copied once: a copy
         # from host memory at every pass would make the host wait for the
         # device three times a batch
@@ -186,29 +204,48 @@ class StreamingFockBuilder:
         add(torch.einsum("nxabycd,snxayd->snxbyc", V, block(I, L)), "j", "k")
         add(torch.einsum("nxabycd,snxayc->snxbyd", V, block(I, Kk)), "j", "l")
 
-    def jk_stack_cart(self, D: torch.Tensor):
-        """J and K stacks (nd, nao, nao) of a stack of symmetric densities
-        (nd, nao, nao): one pass of kernel 1 over every screened tile."""
+    def _local_pass(self, D: torch.Tensor):
+        """(Jp (M, nd), K1 (nd, nao, nao)) of this builder's batches for a
+        stack of symmetric Cartesian densities D (nd, nao, nao)."""
         nd, nao = D.shape[0], self.nao
         dJ = (D.reshape(nd, -1)[:, self._pidx] * self._wj).T.contiguous()  # (M, nd)
         Jp = torch.zeros((self.M, nd), dtype=D.dtype, device=D.device)
         K1 = torch.zeros((nd, nao, nao), dtype=D.dtype, device=D.device)
         for k, ((i1, i2, _, _), (ti_d, tj_d, _)) in enumerate(zip(self.batches, self._offsets)):
             self._digest(i1, i2, ti_d, tj_d, self.tile_values(k), D, dJ, Jp, K1)
-        J = Jp[self._pmap].T.reshape(nd, nao, nao)
-        return J, K1 + K1.transpose(1, 2)
+        return Jp, K1
+
+    def _finish(self, Jp: torch.Tensor, K1: torch.Tensor):
+        nd, nao = K1.shape[0], self.nao
+        return Jp[self._pmap].T.reshape(nd, nao, nao), K1 + K1.transpose(1, 2)
+
+    def jk_stack_cart(self, D: torch.Tensor):
+        """J and K stacks (nd, nao, nao) of a stack of symmetric densities
+        (nd, nao, nao): one pass of kernel 1 over every screened tile (over
+        a mesh, this rank's share, then one ``all_reduce`` of Jp and one of
+        K1)."""
+        Jp, K1 = self._local_pass(D)
+        if self.mesh is not None:
+            self.mesh.all_reduce(Jp)
+            self.mesh.all_reduce(K1)
+        return self._finish(Jp, K1)
 
     def jk_stack(self, D: torch.Tensor):
         """J and K stacks (nd, n, n) of a stack of symmetric densities in
         the system's working basis: spherical densities are mapped to the
         Cartesian basis and J and K back, around one Cartesian pass."""
-        if not self.system.spherical:
-            return self.jk_stack_cart(D)
-        T = torch.as_tensor(self.system.sph_T, dtype=D.dtype, device=D.device)
-        J, K = self.jk_stack_cart(T @ D @ T.T)
-        return T.T @ J @ T, T.T @ K @ T
+        return in_working_basis(self.system, D, self.jk_stack_cart)
 
     def jk(self, D: torch.Tensor):
         """J and K (n, n) of one symmetric density in the working basis."""
         J, K = self.jk_stack(D[None])
         return J[0], K[0]
+
+    def jk_partial(self, D: torch.Tensor):
+        """This rank's share of J and K of a symmetric density (n, n), or
+        of a stack of them (nd, n, n), in the working basis, with no
+        collective: over the ranks of a mesh the shares add up to ``jk(D)``
+        (``jk_stack(D)``)."""
+        J, K = in_working_basis(self.system, D if D.dim() == 3 else D[None],
+                                lambda Dc: self._finish(*self._local_pass(Dc)))
+        return (J, K) if D.dim() == 3 else (J[0], K[0])

@@ -3,7 +3,9 @@ the port's RHF through them, bitwise repeats (kernel 2, the direct build's
 J and K, whole RHF runs in each Fock mode, and CCSD(T)), MP2 and CCSD(T)
 on the card against the port on the CPU, a closed-shell CCSD step and
 (T) on seeded inputs on the card against the CPU, and the RHF nuclear
-gradient on the card against the CPU and repeated in equal bits. These need an NVIDIA GPU with nvcc (the
+gradient on the card against the CPU and repeated in equal bits, the
+sharded builders as rank views and the conformer sweeps on the card
+against the CPU. These need an NVIDIA GPU with nvcc (the
 kernels are built at first use) and skip elsewhere:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -336,3 +338,51 @@ def test_rhf_gradient_on_card_matches_cpu(cuda, mode):
     cpu = rhf_gradient(system, cfg, output=out, device="cpu")
     assert np.abs(g - cpu).max() <= 1e-10
     assert np.array_equal(g, again)
+
+
+@pytest.mark.parametrize("kind", ["stream", "pair", "column"])
+def test_sharded_rank_views_on_card_match_cpu(cuda, kind):
+    """Water/cc-pVDZ (M = 428): four rank views of each sharded builder on
+    the card, their shares added in rank order, against the port's
+    unsharded pair-space J/K on the CPU."""
+    from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
+    from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder, PairSpaceShardedFockBuilder
+    from qchem_rs_tpu_torch.parallel.fock_sharded import ShardedFockBuilder
+    from qchem_rs_tpu_torch.parallel.mesh import rank_view
+    from qchem_rs_tpu_torch.parallel.v2_sharded import (ColumnShardedPairFockBuilder,
+                                                        prepare_rank_views)
+
+    system = _water_ccpvdz()
+    D = _density_stack(1, system.n_basis(), 4)[0]
+    cls = {"stream": ShardedFockBuilder, "pair": PairSpaceShardedFockBuilder,
+           "column": ColumnShardedPairFockBuilder}[kind]
+    engine = TiledEriEngine(system, 1e-12, device=cuda)
+    views = [cls(system, rank_view(4, r, cuda), 1e-12, engine=engine) for r in range(4)]
+    if kind == "column":
+        prepare_rank_views(views)
+    J = K = 0.0
+    for view in views:
+        Jr, Kr = view.jk_partial(D.to(cuda))
+        J, K = J + Jr.cpu(), K + Kr.cpu()
+    J_cpu, K_cpu = PairSpaceFockBuilder(system, 1e-12, device="cpu").jk(D)
+    scale = max(float(J_cpu.abs().max()), 1.0)
+    assert float((J - J_cpu).abs().max()) / scale <= 1e-11
+    assert float((K - K_cpu).abs().max()) / scale <= 1e-11
+
+
+def test_conformer_sweeps_on_card_match_cpu(cuda):
+    """Water/STO-3G at four scales: the conformer sweep and the in-core
+    chain on the card against the CPU, and the sweep against single runs
+    in equal bits."""
+    from qchem_rs_tpu_torch.parallel.sweep import chained_sweep, conformer_sweep
+
+    system = MolecularSystem.load(os.path.join(DATA, "mol", "water.json"),
+                                  BasisSet.load(os.path.join(DATA, "basis", "STO-3G.json")))
+    geoms = np.stack([np.asarray(system.positions) * s for s in (0.95, 1.0, 1.05, 1.1)])
+    cfg = HartreeFockConfig(epsilon=1e-12)
+    e, c = conformer_sweep(system, geoms, cfg, device=cuda)
+    e_cpu, _ = conformer_sweep(system, geoms, cfg, device="cpu")
+    chain, _ = chained_sweep(system, geoms, cfg, device=cuda)
+    assert c.all() and np.abs(e - e_cpu).max() <= 1e-10 and np.abs(chain - e).max() <= 1e-10
+    for g, x in zip(geoms, e):
+        assert restricted_hartree_fock(system.with_positions(g), cfg, device=cuda).total_energy() == x
