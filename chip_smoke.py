@@ -6,12 +6,16 @@
                                        # pass (device time by kernel), and the
                                        # direct pass at three batch sizes
 
-Builds both hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
+Builds the hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
 nvcc process started together; kernel 1 in its two parts, the template
-``eri_tile.cu`` and the high-L ``eri_tile_highl.cu``) and prints the build
-time and ptxas's registers, stack frame and spills for every
+``eri_tile.cu`` and the high-L ``eri_tile_highl.cu``, kernel 2, and kernel
+3, the direct pass's tile values ``eri_tile_values.cu``) and prints the
+build time and ptxas's registers, stack frame and spills for every
 instantiation; holds each kernel against its plain PyTorch twin on the
-card (kernel 1 for all 49 (Lb, Lk) <= (6, 6) with ragged primitive counts,
+card (kernel 3 for all 25 (Lb, Lk) <= (4, 4) with ragged primitive
+counts, at tile edge 32 and with ket tiles of one pair and empty bra rows,
+two launches bit-identical; kernel 1 for all 49 (Lb, Lk) <= (6, 6) with
+ragged primitive counts,
 and its high-L part in all 24 of its (Lb, Lk) at the (xx|ff) shapes of
 ferrocene: ket tiles of one pair, bra tiles of 16, empty bra rows and the
 bra loop split over blocks, two launches bit-identical; its Boys function
@@ -25,7 +29,9 @@ naphthalene/cc-pVDZ (SAD guess, diag_rms 1e-8) through the in-core, pair,
 lean pair and direct Fock modes and a pair run from the Hückel guess,
 each against its anchor, with its peak device memory and the launches of
 each kernel; kernel 2 on the pair-space V2f (m = 19136) and W @ dK timed
-against their bounds; kernel 1 and the digestion per direct pass; and UHF
+against their bounds; kernel 3 per direct pass against its twin, its
+bound and the old route (kernel 1 + ``ket_contract``) over the same tiles,
+and the digestion; and UHF
 on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Then
 every basis: spherical naphthalene/cc-pVDZ (SAD) and UHF OH/6-31G*
 (spherical) in the three modes; ferrocene/6-31G* (Cartesian, f shells on
@@ -87,7 +93,8 @@ fails loudly; the script exits non-zero
 on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
-high-L part at the ferrocene build's; ``launches_rhf_ccsd_t`` counts the
+high-L part at the ferrocene build's, kernel 3 over a naphthalene direct
+pass, its launches those of the naphthalene direct run; ``launches_rhf_ccsd_t`` counts the
 benzene RHF + CCSD(T) path, ``launches_rhf_gradient`` the benzene RHF +
 gradient path, ``launches_sweep`` the benzene conformer sweep); the last
 line is a JSON object naming the device.
@@ -132,6 +139,7 @@ WATER_CCSD_T_E = -76.2468763503677
 # port's value on an H100 (in core and pair space agree to 1.3e-15)
 NAPHTHALENE_MP2_CORR = -1.357088035186
 KERNEL1_RTOL = 1e-12
+KERNEL3_RTOL = 1e-12
 KERNEL2_RTOL = 1e-12
 BOYS_RTOL = 1e-14
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP64
@@ -199,8 +207,8 @@ def print_ptxas(kernel) -> None:
         if m:
             mangled = m.group(1)
             args = ",".join(re.findall(r"Li(\d+)E", mangled))
-            base = re.search(r"(eri_bra_tiles_highl_kernel|eri_bra_tiles_kernel|boys_probe_kernel|"
-                             r"fock_matvec_kernel)", mangled)
+            base = re.search(r"(eri_bra_tiles_highl_kernel|eri_bra_tiles_kernel|eri_tile_values_row_kernel|"
+                             r"eri_tile_values_shared_kernel|boys_probe_kernel|fock_matvec_kernel)", mangled)
             name = f"{base.group(1) if base else mangled}<{args}>"
             continue
         if name and ("stack frame" in line or "Used" in line):
@@ -209,15 +217,18 @@ def print_ptxas(kernel) -> None:
 
 
 def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: int, T2: int,
-                 zero_rows: int = 1):
+                 zero_rows: int = 1, C: int | None = None):
     """Random bra and ket classes of two tile blocks each, with zero-E
     primitive pairs interleaved (counts 1..a, the last ``zero_rows`` bra
-    pairs all zero), compacted as the engine compacts them, on the card."""
+    pairs all zero), compacted as the engine compacts them, on the card:
+    (E1, p1, P1, p2, P2), the two classes' counts and the ket class's E2,
+    whole (N2, c, C, S2) when C is given, else one entry per primitive
+    pair (kernel 1 does not read it)."""
     from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 
     N1, N2 = 2 * T1, 2 * T2
     E1 = rng.standard_normal((N1, a, A, nhermite(Lb)))
-    E2 = rng.standard_normal((N2, c, 1, 1))
+    E2 = rng.standard_normal((N2, c, 1, 1) if C is None else (N2, c, C, nhermite(Lk)))
     for E, n in ((E1, a), (E2, c)):
         for i in range(E.shape[0]):
             keep = rng.integers(1, n + 1)
@@ -227,7 +238,7 @@ def ragged_class(rng, eri_kernel, Lb: int, Lk: int, a: int, c: int, A: int, T1: 
     host2 = (E2, rng.uniform(0.3, 8.0, (N2, c)), rng.standard_normal((N2, c, 3)) * 1.5)
     E1, p1, P1 = eri_kernel.compact_prims(*(torch.tensor(x, device="cuda") for x in host1))
     E2, p2, P2 = eri_kernel.compact_prims(*(torch.tensor(x, device="cuda") for x in host2))
-    return (E1, p1, P1, p2, P2), eri_kernel.prim_counts(E1, T1), eri_kernel.prim_counts(E2, T2)
+    return (E1, p1, P1, p2, P2), eri_kernel.prim_counts(E1, T1), eri_kernel.prim_counts(E2, T2), E2
 
 
 def check_kernel1(eri_kernel, ncart) -> tuple[float, float]:
@@ -244,7 +255,7 @@ def check_kernel1(eri_kernel, ncart) -> tuple[float, float]:
             A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
             part = eri_kernel.KERNEL if max(Lb, Lk) <= eri_kernel.KERNEL_MAX_SIDE \
                 else eri_kernel.HIGHL_KERNEL
-            args, bra, ket = ragged_class(rng, eri_kernel, Lb, Lk, a, c, A, T, T)
+            args, bra, ket, _ = ragged_class(rng, eri_kernel, Lb, Lk, a, c, A, T, T)
             ti, tj = np.array([0, T, T]), np.array([T, 0, T])
             before = part.launches
             out = eri_kernel.bra_tiles(Lb, Lk, *args, ti, tj, T, T, bra, ket)
@@ -276,7 +287,7 @@ def check_highl_shapes(eri_kernel, ncart) -> float:
                 continue
             a, T1, T2 = 6, 16, 1
             A = max(ncart(Lb - lb) * ncart(lb) for lb in range(Lb // 2 + 1))
-            args, bra, ket = ragged_class(rng, eri_kernel, Lb, Lk, a, 1, A, T1, T2, zero_rows=11)
+            args, bra, ket, _ = ragged_class(rng, eri_kernel, Lb, Lk, a, 1, A, T1, T2, zero_rows=11)
             ti, tj = np.array([0, T1, T1]), np.array([T2, 0, T2])
             sc = eri_kernel.highl_schedule(Lb, Lk, a, 1, A, T1, T2, len(ti),
                                            torch.cuda.get_device_properties(0).multi_processor_count)
@@ -294,6 +305,43 @@ def check_highl_shapes(eri_kernel, ncart) -> float:
             if not (rel <= KERNEL1_RTOL and same):
                 fail(f"the high-L part at T2=1 disagrees with its twin or itself at Lb={Lb} Lk={Lk}")
             worst = max(worst, err)
+    return worst
+
+
+def check_kernel3(eri_kernel, ncart) -> float:
+    """Kernel 3 against its twin (``ket_contract`` of ``bra_tiles_plain``)
+    for all 25 (Lb, Lk) <= (4, 4) with ragged primitive counts, at the
+    largest tile edge (32, four tiles per call) with the largest component
+    counts, and with ket tiles of one pair, bra tiles of 16 of which 11
+    rows hold no real primitive pair, and the smallest component counts;
+    each launched twice, bit-identical. Returns the worst abs error."""
+    rng = np.random.default_rng(9)
+    prims = [9, 4, 3, 2, 1]
+    worst = 0.0
+    for Lb in range(eri_kernel.KERNEL_MAX_SIDE + 1):
+        for Lk in range(eri_kernel.KERNEL_MAX_SIDE + 1):
+            comps = [[ncart(L - lb) * ncart(lb) for lb in range(L // 2 + 1)] for L in (Lb, Lk)]
+            for pick, T1, T2, zero_rows in ((max, 32, 32, 1), (min, 16, 1, 11)):
+                A, C = pick(comps[0]), pick(comps[1])
+                (E1, p1, P1, p2, P2), bra, ket, E2 = ragged_class(
+                    rng, eri_kernel, Lb, Lk, prims[Lb], prims[Lk], A, T1, T2, zero_rows, C)
+                args = (E1, p1, P1, E2, p2, P2)
+                ti, tj = np.array([0, T1, T1, 0]), np.array([T2, 0, T2, 0])
+                before = eri_kernel.VALUES_KERNEL.launches
+                out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+                again = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+                ref = eri_kernel.tile_values_plain(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+                torch.cuda.synchronize()
+                err, rel = rel_err(out, ref)
+                same = torch.equal(out, again)
+                print(f"kernel3 Lb={Lb} Lk={Lk} A={A} C={C} T1={T1} T2={T2} (ragged counts, "
+                      f"{int((bra.n == 0).sum())} bra pairs without real prims): max rel err "
+                      f"{rel:.3e}, two launches bit-identical {same}", flush=True)
+                if eri_kernel.VALUES_KERNEL.launches != before + 2:
+                    fail(f"class ({Lb}, {Lk}) did not launch kernel 3")
+                if not (rel <= KERNEL3_RTOL and same):
+                    fail(f"kernel 3 disagrees with its twin or itself at Lb={Lb} Lk={Lk} T2={T2}")
+                worst = max(worst, err)
     return worst
 
 
@@ -538,7 +586,7 @@ def naphthalene_rhf(Q, kernels: dict, paths: dict):
         ("incore sad", "incore", "sad", None, both),
         ("pair sad", "pair", "sad", None, both),
         ("pair lean sad", "pair", "sad", 0, both),
-        ("direct sad", "direct", "sad", None, ("eri_tile",)),
+        ("direct sad", "direct", "sad", None, ("eri_tile_values",)),
         ("pair huckel", "pair", "huckel", None, both),
     ):
         cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=150, fock_mode=mode,
@@ -568,7 +616,7 @@ def naphthalene_rhf(Q, kernels: dict, paths: dict):
         again, _, _, _ = drive(
             kernels, f"naphthalene/cc-pVDZ {label} again",
             lambda: Q.restricted_hartree_fock(system, cfg, device="cuda"),
-            both if mode == "pair" else ("eri_tile",))
+            both if mode == "pair" else ("eri_tile_values",))
         check_repeat(f"naphthalene/cc-pVDZ {label}", runs[label], again)
     sad = [o.total_energy() for label, o in runs.items() if label.endswith("sad")]
     print(f"naphthalene/cc-pVDZ SAD modes: spread {max(sad) - min(sad):.2e} Eh; pair iterations "
@@ -620,72 +668,98 @@ def pair_kernel_numbers(system, density, fock_matvec) -> dict:
 
 
 def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> dict:
-    """Per direct pass on naphthalene: kernel 1 against its twin on the
-    first twin-sized batch of every class pair, its launches counted, and
-    the times of kernel 1, of its twin over the same tiles, of kernel 1
-    with the ket contraction and of the whole J/K pass (the digestion is
-    the difference) against kernel 1's bound."""
+    """Per direct pass on naphthalene: kernel 3 against its twin on the
+    first twin-sized batch of every class pair, its launches over one pass
+    counted, two passes equal in bits; then, in turns in this run, kernel 3
+    over the pass's batches and the old route over the same tiles (kernel 1
+    in its own batches, then ``ket_contract``), kernel 3's twin, the whole
+    J/K pass (the digestion is the difference), kernel 3's bound, and the
+    five class pairs that take the most kernel-3 time."""
+    from qchem_rs_tpu_torch.ops.eri_kernel import ket_contract
     from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
 
     builder = StreamingFockBuilder(system, 1e-12, device="cuda")
     eng = builder.engine
+    metas = eng.layout.metas
     worst, seen = 0.0, set()
     for i1, i2, ti, tj in eng.batches(twin=True):
         if (i1, i2) in seen:
             continue
         seen.add((i1, i2))
-        out = eng.bra_batch(i1, i2, ti, tj)
-        ref = eng.bra_batch(i1, i2, ti, tj, fn=eri_kernel.bra_tiles_plain)
+        out = eng.values_batch(i1, i2, ti, tj)
+        ref = eng.values_batch(i1, i2, ti, tj, fn=eri_kernel.tile_values_plain)
         err, rel = rel_err(out, ref)
-        if not rel <= KERNEL1_RTOL:
-            fail(f"kernel 1 disagrees with its twin on naphthalene class pair {i1},{i2}: {rel:.3e}")
+        if not rel <= KERNEL3_RTOL:
+            fail(f"kernel 3 disagrees with its twin on naphthalene class pair {i1},{i2}: {rel:.3e}")
         worst = max(worst, err)
     D = torch.tensor(density, device="cuda")[None]
+    old_batches = list(eng.batches(values=False))  # kernel 1's batches of the same tiles
 
-    def kernel1():
-        for k in range(len(builder.batches)):
-            builder.bra_values(k)
-
-    def values():
-        for k in range(len(builder.batches)):
+    def values(ks=range(len(builder.batches))):
+        for k in ks:
             builder.tile_values(k)
+
+    def old():
+        for i1, i2, ti, tj in old_batches:
+            ket_contract(eng.bra_batch(i1, i2, ti, tj), eng._padded[i2][0], tj, metas[i2].tile)
 
     def plain():  # the twin over the same tiles, in its own batch sizes
         for i1, i2, ti, tj in eng.batches(twin=True):
-            eng.bra_batch(i1, i2, ti, tj, fn=eri_kernel.bra_tiles_plain)
+            eng.values_batch(i1, i2, ti, tj, fn=eri_kernel.tile_values_plain)
 
-    before = eri_kernel.KERNEL.launches
+    before = eri_kernel.VALUES_KERNEL.launches, eri_kernel.KERNEL.launches
     J1, K1 = builder.jk_stack_cart(D)
     torch.cuda.synchronize()
-    per_pass = eri_kernel.KERNEL.launches - before
+    per_pass = eri_kernel.VALUES_KERNEL.launches - before[0]
+    k1_per_pass = eri_kernel.KERNEL.launches - before[1]
     J2, K2 = builder.jk_stack_cart(D)
     same = torch.equal(J1, J2) and torch.equal(K1, K2)
     print(f"direct pass on naphthalene twice: J and K bit-identical {same}", flush=True)
     if not same:
         fail("two direct passes on the same naphthalene density differ")
-    if per_pass != len(builder.batches):
-        fail(f"a direct pass launched kernel 1 {per_pass} times, not {len(builder.batches)}")
-    k1, kv, full = [], [], []
-    for _ in range(2):
-        k1.append(cuda_ms(kernel1, 2))
+    if per_pass != len(builder.batches) or k1_per_pass:
+        fail(f"a direct pass launched kernel 3 {per_pass} times and kernel 1 {k1_per_pass} times, "
+             f"not {len(builder.batches)} and 0")
+    kv, ko, full = [], [], []
+    for _ in range(2):  # in turns: kernel 3, old route, old route, kernel 3
+        kv.append(cuda_ms(values, 2))
+        ko.append(cuda_ms(old, 2))
+        ko.append(cuda_ms(old, 2))
         kv.append(cuda_ms(values, 2))
         full.append(cuda_ms(lambda: builder.jk_stack_cart(D), 2))
     plain_ms = cuda_ms(plain, 1)
-    nbytes, flops = eng.bra_kernel_work()
+    nbytes, flops = eng.values_kernel_work()
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
-    res = {"launches_per_pass": per_pass, "max_abs_err": worst, "kernel1_ms": float(np.mean(k1)),
-           "plain_ms": plain_ms,
-           "ket_ms": float(np.mean(kv) - np.mean(k1)), "digest_ms": float(np.mean(full) - np.mean(kv)),
-           "pass_ms": float(np.mean(full)), "bound_ms": max(bytes_ms, flops_ms),
+    res = {"launches_per_pass": per_pass, "max_abs_err": worst, "ms": float(np.mean(kv)),
+           "old_route_ms": float(np.mean(ko)), "plain_ms": plain_ms,
+           "digest_ms": float(np.mean(full) - np.mean(kv)), "pass_ms": float(np.mean(full)),
+           "bound_ms": max(bytes_ms, flops_ms), "library_ms": None,
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
-    print(f"direct pass on naphthalene: {per_pass} kernel-1 launches; kernel 1 "
-          f"{res['kernel1_ms']:.3f} ms (runs {k1}; its twin {plain_ms:.3f} ms), ket contraction "
-          f"{res['ket_ms']:.3f} ms, "
-          f"digestion {res['digest_ms']:.3f} ms, whole pass {res['pass_ms']:.3f} ms (runs {full}); "
-          f"kernel 1 must move {nbytes / 1e9:.3f} GB ({bytes_ms:.4f} ms) and do "
-          f"{flops / 1e9:.2f} GFLOP ({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by "
-          f"{res['bound_by']}; kernel 1 vs twin max abs err {worst:.3e} over {len(seen)} class "
-          f"pairs", flush=True)
+    print(f"direct pass on naphthalene: {per_pass} kernel-3 launches ({len(old_batches)} for kernel "
+          f"1 in its own batches); kernel 3 {res['ms']:.3f} ms (runs {kv}), old route kernel 1 + "
+          f"ket_contract over the same tiles {res['old_route_ms']:.3f} ms (runs {ko}), kernel 3's "
+          f"twin {plain_ms:.3f} ms; digestion {res['digest_ms']:.3f} ms, whole pass "
+          f"{res['pass_ms']:.3f} ms (runs {full}); kernel 3 must move {nbytes / 1e9:.3f} GB "
+          f"({bytes_ms:.4f} ms) and do {flops / 1e9:.2f} GFLOP ({flops_ms:.4f} ms): bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']}; kernel 3 vs twin max abs err "
+          f"{worst:.3e} over {len(seen)} class pairs", flush=True)
+    if not res["ms"] < res["old_route_ms"]:
+        fail("kernel 3 is not faster than kernel 1 + ket_contract over the same tiles")
+    by_class: dict = {}
+    for k, (i1, i2, _, _) in enumerate(builder.batches):
+        by_class.setdefault((i1, i2), []).append(k)
+    rows = []
+    for (i1, i2), ks in by_class.items():
+        m1, m2 = metas[i1], metas[i2]
+        ms = cuda_ms(lambda: values(ks), 3)
+        cb, cf = eng.values_kernel_work(pairs={(i1, i2)})
+        name = "({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb)))
+        rows.append((ms, name, len(ks), max(cb / HBM_BYTES_PER_S, cf / FP64_FLOP_PER_S) * 1e3, cf))
+    summed = sum(r[0] for r in rows)
+    for ms, name, n, bound, cf in sorted(rows, reverse=True)[:5]:
+        print(f"kernel 3 class {name}: {ms:.4f} ms ({ms / summed:.3f} of the class pairs' sum "
+              f"{summed:.3f} ms), {n} launches, own bound {bound:.4f} ms ({cf / 1e9:.3f} GFLOP), "
+              f"time/bound {ms / bound:.1f}", flush=True)
     if profile:
         device_profile("naphthalene direct pass", lambda: builder.jk_stack_cart(D))
         batch_sweep(system, D, eng)
@@ -693,8 +767,8 @@ def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> d
 
 
 def batch_sweep(system, D, engine) -> None:
-    """One direct pass at three kernel-1 batch sizes (the engine's
-    BATCH_BYTES is the largest): time and peak device memory."""
+    """One direct pass at three batch sizes (the engine's BATCH_BYTES is
+    the largest): time and peak device memory."""
     from qchem_rs_tpu_torch.ops import eri_tiled
     from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
 
@@ -727,7 +801,7 @@ def uhf_6_31g(Q, kernels: dict, paths: dict) -> None:
         for mode in ("incore", "pair", "direct"):
             cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=500, spin_multiplicity=mult,
                                       fock_mode=mode)
-            used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
+            used = ("eri_tile_values",) if mode == "direct" else ("eri_tile", "fock_matvec")
             out, launches, peak, _ = drive(
                 kernels, f"UHF {mol}/6-31G multiplicity {mult} {mode}",
                 lambda: Q.unrestricted_hartree_fock(system, cfg, device="cuda"), used)
@@ -753,7 +827,7 @@ def naphthalene_spherical(Q, kernels: dict, paths: dict) -> None:
     system = load_system(Q, "naphthalene", spherical=True)
     both = ("eri_tile", "fock_matvec")
     energies = []
-    for mode, used in (("incore", both), ("pair", both), ("direct", ("eri_tile",))):
+    for mode, used in (("incore", both), ("pair", both), ("direct", ("eri_tile_values",))):
         cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=150, fock_mode=mode,
                                   initial_guess="sad")
         label = f"naphthalene/cc-pVDZ spherical {mode} sad"
@@ -781,7 +855,7 @@ def uhf_spherical(Q, kernels: dict, paths: dict) -> None:
     for mode in ("incore", "pair", "direct"):
         cfg = Q.HartreeFockConfig(epsilon=1e-12, max_iterations=500, spin_multiplicity=2,
                                   fock_mode=mode)
-        used = ("eri_tile",) if mode == "direct" else ("eri_tile", "fock_matvec")
+        used = ("eri_tile_values",) if mode == "direct" else ("eri_tile", "fock_matvec")
         out, launches, peak, _ = drive(
             kernels, f"UHF hydroxyl/6-31G* spherical {mode}",
             lambda: Q.unrestricted_hartree_fock(system, cfg, device="cuda"), used)
@@ -803,7 +877,7 @@ def ferrocene(Q, kernels: dict, paths: dict):
     hl = ("eri_tile", "eri_tile_highl")
     energies, incore = [], None
     for mode, used in (("incore", hl + ("fock_matvec",)), ("pair", hl + ("fock_matvec",)),
-                       ("direct", hl)):
+                       ("direct", ("eri_tile_values", "eri_tile_highl"))):
         cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=200, fock_mode=mode,
                                   initial_guess="sad")
         out, launches, peak, _ = drive(
@@ -935,7 +1009,7 @@ def water_field(Q, kernels: dict, paths: dict) -> None:
         ("no field", "incore", 0.0, ("eri_tile", "fock_matvec")),
         ("+F", "incore", F, ("eri_tile", "fock_matvec")),
         ("-F", "incore", -F, ("eri_tile", "fock_matvec")),
-        ("+F direct", "direct", F, ("eri_tile",)),
+        ("+F direct", "direct", F, ("eri_tile_values",)),
     ):
         cfg = Q.HartreeFockConfig(epsilon=1e-10, max_iterations=100, fock_mode=mode,
                                   electric_field=(0.0, 0.0, field))
@@ -1787,6 +1861,8 @@ def chained_phase(Q, kernels: dict, paths: dict, sweep) -> np.ndarray:
               flush=True)
         if not nconv.all() or gap > 1e-9:
             fail(f"the naphthalene {mode} chain misses the fresh runs' energies")
+        if launches["eri_tile_values" if mode == "direct" else "eri_tile"] == 0:
+            fail(f"the naphthalene {mode} chain bypassed its ERI kernel: {launches}")
         paths[f"chained sweep naphthalene {mode}"] = dict(launches, wall_s=wall)
     return chain
 
@@ -1870,7 +1946,8 @@ def nccl_phases(Q, kernels: dict, paths: dict, naphthalene) -> None:
                   f"RHF {t3 - t2:.4f} s ({st.passes - 1} iterations, E {e:.10f}, dE {dE:.2e} "
                   f"from the pair run); J, K rel. err {dJ:.2e}, {dK:.2e}; peak device memory "
                   f"{peak / 1e9:.3f} GB; launches {launches}", flush=True)
-            if not st.converged or max(dJ, dK) > 1e-12 or abs(dE) > 1e-9 or launches["eri_tile"] == 0:
+            kernel = "eri_tile_values" if cls is ShardedFockBuilder else "eri_tile"
+            if not st.converged or max(dJ, dK) > 1e-12 or abs(dE) > 1e-9 or launches[kernel] == 0:
                 fail(f"{name} over NCCL misses the unsharded J/K or energy")
             paths[f"nccl {name} naphthalene"] = dict(launches, prepare_s=t1 - t0, jk_s=warm,
                                                      rhf_s=t3 - t2, peak_bytes=peak)
@@ -2011,17 +2088,20 @@ def main(argv: list[str]) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 1. build both kernels from the checkout's sources
-    kernels = (eri_kernel.KERNEL, eri_kernel.HIGHL_KERNEL, eri_kernel.BOYS_PROBE, fock_matvec.KERNEL)
+    kernels = (eri_kernel.KERNEL, eri_kernel.HIGHL_KERNEL, eri_kernel.BOYS_PROBE,
+               eri_kernel.VALUES_KERNEL, fock_matvec.KERNEL)
     t0 = time.perf_counter()
     load_all(list(kernels))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(eri_kernel.KERNEL)
     print_ptxas(eri_kernel.HIGHL_KERNEL)
+    print_ptxas(eri_kernel.VALUES_KERNEL)
     print_ptxas(fock_matvec.KERNEL)
 
     # 2. each kernel against its twin
     k1_abs, highl_abs = check_kernel1(eri_kernel, ncart)
     highl_abs = max(highl_abs, check_highl_shapes(eri_kernel, ncart))
+    k3_abs = check_kernel3(eri_kernel, ncart)
     check_boys(eri_kernel)
     k2 = check_kernel2(fock_matvec)
 
@@ -2080,11 +2160,11 @@ def main(argv: list[str]) -> int:
     # 6. the scale path: naphthalene/cc-pVDZ through every Fock mode, the
     # kernels on its new paths, and UHF at BASELINE config 3
     named = {"eri_tile": eri_kernel.KERNEL, "eri_tile_highl": eri_kernel.HIGHL_KERNEL,
-             "fock_matvec": fock_matvec.KERNEL}
+             "eri_tile_values": eri_kernel.VALUES_KERNEL, "fock_matvec": fock_matvec.KERNEL}
     paths = {"rhf benzene incore huckel": dict(launches)}
     naph, pair_run = naphthalene_rhf(Q, named, paths)
     pair_kernel_numbers(naph, pair_run.density, fock_matvec)
-    direct_pass_numbers(naph, pair_run.density, eri_kernel, profile="--profile" in argv)
+    k3 = direct_pass_numbers(naph, pair_run.density, eri_kernel, profile="--profile" in argv)
     uhf_6_31g(Q, named, paths)
 
     # 7. every basis: spherical AOs through every mode, f shells through the
@@ -2163,6 +2243,17 @@ def main(argv: list[str]) -> int:
          "max_abs_err": max(highl_abs, hl["max_abs_err"]), "ms": hl["ms"], "device_ms": hl["device_ms"],
          "plain_ms": hl["plain_ms"],
          "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"], "library_ms": hl["library_ms"]},
+        {"name": "tile_values", "route": "cuda",
+         "source": "qchem_rs_tpu_torch/csrc/eri_tile_values.cu",
+         "replaces": "qchem_rs_tpu/ops/eri_pallas.py:175 and :191 with the contractions of "
+                     "tile_vals_pallas :430",
+         "launches": paths["rhf naphthalene direct sad"]["eri_tile_values"],
+         "launches_per_run": paths["rhf naphthalene direct sad"]["eri_tile_values"],
+         "launches_per_pass": k3["launches_per_pass"],
+         "launches_sweep_chain": paths["chained sweep naphthalene direct"]["eri_tile_values"],
+         "max_abs_err": max(k3_abs, k3["max_abs_err"]), "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "old_route_ms": k3["old_route_ms"]},
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],

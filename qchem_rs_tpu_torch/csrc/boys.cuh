@@ -1,6 +1,7 @@
 // The Boys function F_0..F_M(T) in FP64 on the device, shared by both parts
-// of kernel 1 (csrc/eri_tile.cu, csrc/eri_tile_highl.cu) and by the probe
-// that holds it against ops/boys.py::boys (eri_boys in eri_tile.cu).
+// of kernel 1 (csrc/eri_tile.cu, csrc/eri_tile_highl.cu), kernel 3
+// (csrc/eri_tile_values.cu) and the probe that holds it against
+// ops/boys.py::boys (eri_boys in eri_tile.cu).
 //
 // The three branches of ops/boys.py::boys, with one division (1/T) and none
 // inside a loop: the Kummer series is one Horner polynomial whose
@@ -8,6 +9,12 @@
 // downward and upward recursions multiply by compile-time reciprocals
 // (tests/test_torch_integrals.py holds the same arithmetic on the CPU
 // against ops/boys.py::boys). Orders up to 12 (f-shell quartets).
+//
+// kRsqrt (kernel 3) takes sqrt(T) and 1/T in the closed form from one
+// reciprocal square root, in place of a division and two square roots:
+// fewer FP64 instructions, other roundings. Kernel 1 keeps the division, so
+// that its values, and the SCF runs and anchors built on them, keep their
+// bits.
 
 #pragma once
 
@@ -18,6 +25,7 @@
 namespace qchem_eri {
 
 constexpr double kPi = 3.141592653589793238462643383279502884;
+constexpr double kHalfSqrtPi = 0.886226925452758013649083741671;  // sqrt(pi) / 2
 constexpr int kMaxBoys = 12;  // highest order: L = 12, (ff|ff)
 
 template <int K>
@@ -54,7 +62,7 @@ __device__ __forceinline__ void boys_down(double x, double eT, double* F,
 }
 
 // F_0..F_M(T) into F[0..M]
-template <int M>
+template <int M, bool kRsqrt = false>
 __device__ __forceinline__ void boys(double T, double* F) {
   static_assert(M >= 0 && M <= kMaxBoys, "Boys orders 0..12");
   if (T < 0.01 && M == 0) {
@@ -69,8 +77,15 @@ __device__ __forceinline__ void boys(double T, double* F) {
     return;
   }
   if (M == 0 || T > M + 1.5) {
-    const double invT = 1.0 / T;
-    F[0] = 0.5 * sqrt(kPi * invT) * erf(sqrt(T));
+    double invT;
+    if constexpr (kRsqrt) {  // T >= 0.01 here
+      const double rT = rsqrt(T);
+      invT = rT * rT;
+      F[0] = kHalfSqrtPi * rT * erf(T * rT);
+    } else {
+      invT = 1.0 / T;
+      F[0] = 0.5 * sqrt(kPi * invT) * erf(sqrt(T));
+    }
     if (M > 0) {
       // upward recursion from the closed form, contracting for T > m + 1/2
       const double eT = exp(-T);

@@ -1,5 +1,6 @@
-"""Kernel 1: the bra-contracted ERI tile, ``csrc/eri_tile.cu``, beside its
-plain PyTorch twin.
+"""Kernel 1, the bra-contracted ERI tile (``csrc/eri_tile.cu``), and kernel
+3, the finished tile values of the direct pass (``csrc/eri_tile_values.cu``),
+beside their plain PyTorch twins.
 
 For one class pair (bra pairs of total angular momentum Lb, ket pairs of
 Lk) and a batch of pair tiles (row offsets ``ti`` into the bra class, column
@@ -12,8 +13,8 @@ offsets ``tj`` into the ket class), both compute
 where R is the Hermite Coulomb table of the primitive quartet (bra primitive
 pair ia of pair ti+t1, ket primitive pair ic of pair tj+t2), pref =
 2 pi^{5/2} / (pq sqrt(p+q)) and idx/sign the (s1, s2) plan of
-``eri._r2_gather``. The ket contraction with E2 stays outside (a batched
-matmul in ``eri_tiled.ket_contract``).
+``eri._r2_gather``. The ket contraction with E2 follows outside, a batched
+matmul (``ket_contract``), or in kernel 3 below.
 
 Replaces the three TPU kernels of ``qchem_rs_tpu/ops/eri_pallas.py``:
 ``_kernel_fused_e1`` (:205), ``_kernel_fused`` (:175) and ``_kernel_htab``
@@ -47,6 +48,21 @@ bra loop, storing them once; Boys runs without a division in any loop
 
 On CPU tensors ``bra_tiles`` runs the twin; on CUDA tensors it launches one
 of the two parts or raises.
+
+Kernel 3 (``tile_values``) computes the whole chain for the class pairs
+with Lb, Lk <= 4: both contractions, so that its (ntiles, T1*A, T2*C)
+result is ``ket_contract(bra_tiles(...))``, which is its twin
+(``tile_values_plain``). It replaces ``tile_vals_pallas``
+(``qchem_rs_tpu/ops/eri_pallas.py:430``, the Pallas bodies ``_kernel_fused``
+:175 and ``_kernel_htab`` :191 with the contractions in XLA) on the direct
+pass. Each real primitive quartet's R is built once and both contractions
+add into sums on chip; only the finished blocks are written. A block owns
+one bra pair of a tile: in the row kernel (class pairs whose alphas all fit
+one thread) its threads take the tile's real ket points, as kernel 1's do;
+in the shared kernel its threads build a round of R tables in shared memory
+for the owners of each ket pair's sums. Class pairs with d-d ket pairs are
+computed from their ket side and written transposed (``swap_sides``; notes
+in the source).
 """
 
 from __future__ import annotations
@@ -90,6 +106,14 @@ HIGHL_KERNEL = CudaKernel(
     "eri_bra_tiles_highl",
     [_c.c_int] * 15 + [_c.c_void_p] * 14,
 )
+#: kernel 3: finished tile values, classes with Lb, Lk <= 4, one translation
+#: unit per (Lb, Lk) as kernel 1's template part
+VALUES_KERNEL = CudaKernel(
+    "eri_tile_values.cu",
+    "eri_tile_values",
+    [_c.c_int] * 11 + [_c.c_void_p] * 15,
+    parts=BUILD_PARTS,
+)
 #: the kernels' Boys function on its own, for holding it against ``boys``
 BOYS_PROBE = CudaKernel(
     "eri_tile.cu",
@@ -106,11 +130,13 @@ class PrimCounts:
     n (N,) int32: primitive pairs with nonzero E per pair. order (N/T, c*T)
     int32: per block of T pairs (a tile), its ket points ``ic*T + t`` with
     ic < n[pair] first, in ascending order, then the others; nreal (N/T,)
-    int32: how many of them are real."""
+    int32: how many of them are real; pos (N/T, c*T) int32: the place of
+    ket point ``ic*T + t`` in its block's ``order``."""
 
     n: torch.Tensor
     order: torch.Tensor
     nreal: torch.Tensor
+    pos: torch.Tensor
     T: int
 
 
@@ -150,10 +176,12 @@ def prim_counts(E: torch.Tensor, T: int) -> PrimCounts:
         raise ValueError("primitive pairs with nonzero E must come first (compact_prims)")
     real = nz.reshape(N // T, T, c).transpose(1, 2).reshape(N // T, c * T)  # [block, ic*T + t]
     key = (~real).to(torch.int64) * (c * T) + torch.arange(c * T, device=E.device)
+    order = torch.argsort(key, dim=1)
     return PrimCounts(
         n=n.to(torch.int32).contiguous(),
-        order=torch.argsort(key, dim=1).to(torch.int32).contiguous(),
+        order=order.to(torch.int32).contiguous(),
         nreal=real.sum(dim=1).to(torch.int32).contiguous(),
+        pos=torch.argsort(order, dim=1).to(torch.int32).contiguous(),
         T=T,
     )
 
@@ -162,12 +190,9 @@ def all_prims(N: int, c: int, T: int, device) -> PrimCounts:
     """Counts that take every primitive pair of a class of N pairs as real,
     in their own order: what the kernel computes when no counts are given."""
     i32 = dict(dtype=torch.int32, device=device)
-    return PrimCounts(
-        n=torch.full((N,), c, **i32),
-        order=torch.arange(c * T, **i32).expand(N // T, c * T).contiguous(),
-        nreal=torch.full((N // T,), c * T, **i32),
-        T=T,
-    )
+    order = torch.arange(c * T, **i32).expand(N // T, c * T).contiguous()
+    return PrimCounts(n=torch.full((N,), c, **i32), order=order,
+                      nreal=torch.full((N // T,), c * T, **i32), pos=order, T=T)
 
 
 @lru_cache(maxsize=None)
@@ -422,6 +447,99 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
                                 ket.order.data_ptr(), ket.nreal.data_ptr(),
                                 _device_plan(Lb, Lk, dev).data_ptr(),
                                 partials.data_ptr(), out.data_ptr(), stream_of(out))
+    return out
+
+
+def ket_contract(bra: torch.Tensor, E2: torch.Tensor, tj, T2: int) -> torch.Tensor:
+    """Ket Hermite->Cartesian contraction of bra-contracted tiles.
+
+    bra (nt, A, c*S2, T1, T2) from ``bra_tiles``; E2 (N2, c, C, S2) the ket
+    class; tj the ket tile offsets, on the host or as a tensor on bra's
+    device. Returns the (nt, T1*A, T2*C) V2 blocks, rows (t1, alpha) and
+    columns (t2, gamma)."""
+    nt, A, cS2, T1, _ = bra.shape
+    C = E2.shape[2]
+    tj = torch.as_tensor(tj, dtype=torch.long, device=bra.device)
+    i2 = tj[:, None] + torch.arange(T2, device=bra.device)
+    E2t = E2[i2].permute(0, 1, 2, 4, 3).reshape(nt * T2, cS2, C)  # (nt*T2, (c,s2), C)
+    x = bra.permute(0, 4, 3, 1, 2).reshape(nt * T2, T1 * A, cS2)  # (nt*T2, (t1,alpha), (c,s2))
+    out = torch.bmm(x, E2t).reshape(nt, T2, T1 * A, C)
+    return out.permute(0, 2, 1, 3).reshape(nt, T1 * A, T2 * C)
+
+
+def tile_values_plain(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
+                      offsets=None):
+    """Kernel 3's twin: ``bra_tiles_plain`` followed by ``ket_contract``,
+    (ntiles, T1*A, T2*C) float64 (``offsets`` change nothing here)."""
+    return ket_contract(bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket),
+                        E2, tj, T2)
+
+
+def swap_sides(Lb: int, Lk: int) -> bool:
+    """Whether kernel 3 computes class pair (Lb, Lk) from the ket side: the
+    (Lk, Lb) blocks, written transposed, for ket pairs of Lk = 4 (d-d
+    pairs: 36 Cartesian components) under a lighter bra. From the bra side
+    each thread's ket contraction loads its own ket pair's whole E2 row
+    (1260 doubles for a d-d pair) for one multiply-add a load; from the ket
+    side that row is the block's E1, loaded once for all its threads.
+    ``tools/values_trials.py`` times both sides of every naphthalene/cc-pVDZ
+    class pair: the ket side wins for the d-d ket pairs and loses for the
+    ket classes of Lk = 3."""
+    return Lk == KERNEL_MAX_SIDE and Lb < Lk
+
+
+def tile_values(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
+                offsets=None, E1t=None, E2t=None) -> torch.Tensor:
+    """Finished ERI tile values, (ntiles, T1*A, T2*C) float64: rows (t1,
+    alpha), columns (t2, gamma), as ``ket_contract`` of ``bra_tiles``.
+
+    Arguments as ``bra_tiles``, with E2 (N2, c, C, S2) the ket class's
+    Hermite table; ``E1t`` and ``E2t`` may hold ``E.permute(1, 2, 3,
+    0).contiguous()`` of E1 and E2 for a caller that launches the same
+    classes again and again (the kernel reads the one of its ket side,
+    ``swap_sides``; without it the copy is made here). CPU tensors take the
+    twin; CUDA tensors launch kernel 3 (class pairs with Lb, Lk <= 4) or
+    raise."""
+    _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
+    N2, c = p2.shape
+    if E2.device != E1.device or E2.dtype != torch.float64 or not E2.is_contiguous():
+        raise ValueError("E2 must be a contiguous float64 tensor on E1's device")
+    if E2.dim() != 4 or E2.shape[:2] != (N2, c) or E2.shape[3] != nhermite(Lk):
+        raise ValueError(f"ket shape E2 {tuple(E2.shape)} does not fit p2 {tuple(p2.shape)}, Lk={Lk}")
+    dev = E1.device
+    if dev.type == "cpu":
+        return tile_values_plain(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra, ket)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if max(Lb, Lk) > KERNEL_MAX_SIDE:
+        raise ValueError(f"kernel 3 takes Lb, Lk <= {KERNEL_MAX_SIDE}, got ({Lb}, {Lk})")
+    nt = len(ti)
+    out = torch.empty((nt, T1 * E1.shape[2], T2 * E2.shape[2]), dtype=torch.float64, device=dev)
+    if nt == 0:
+        return out
+    if offsets is None:
+        offsets = tuple(torch.from_numpy(np.stack([ti, tj]).astype(np.int32)).to(dev, non_blocking=True))
+    if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
+        raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
+    if ket is None:
+        bra, ket = all_prims(E1.shape[0], E1.shape[1], T1, dev), all_prims(N2, c, T2, dev)
+    sides = [(Lb, E1, p1, P1, offsets[0], T1, bra, E1t), (Lk, E2, p2, P2, offsets[1], T2, ket, E2t)]
+    trans = swap_sides(Lb, Lk)
+    if trans:  # the transposed blocks, the class pair seen from its ket side
+        sides.reverse()
+        if bra.T != T1 or (np.asarray(ti) % T1).any():
+            raise ValueError(f"bra tiles must start at multiples of T1={T1}, with counts for T1")
+    (Lx, Ex, px, Px, tx, Tx, nx, _), (Ly, Ey, py, Py, ty, Ty, ny, Eyt) = sides
+    if Eyt is None:
+        Eyt = Ey.permute(1, 2, 3, 0).contiguous()
+    elif Eyt.shape != Ey.shape[1:] + Ey.shape[:1] or not Eyt.is_contiguous() or Eyt.device != dev:
+        raise ValueError("E1t and E2t must be E.permute(1, 2, 3, 0), contiguous, on E1's device")
+    with torch.cuda.device(dev):
+        VALUES_KERNEL.launch(Lx, Ly, Ex.shape[1], Ey.shape[1], Ex.shape[2], Ey.shape[2], Tx, Ty, nt,
+                             Ey.shape[0], int(trans), Ex.data_ptr(), px.data_ptr(), Px.data_ptr(),
+                             Eyt.data_ptr(), py.data_ptr(), Py.data_ptr(), tx.data_ptr(),
+                             ty.data_ptr(), nx.n.data_ptr(), ny.n.data_ptr(), ny.order.data_ptr(),
+                             ny.nreal.data_ptr(), ny.pos.data_ptr(), out.data_ptr(), stream_of(out))
     return out
 
 

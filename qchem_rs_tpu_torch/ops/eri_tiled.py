@@ -36,8 +36,8 @@ import torch
 
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri import PairGroup, build_pair_groups
-from qchem_rs_tpu_torch.ops.eri_kernel import (bra_tiles, bra_tiles_plain, compact_order, compact_prims,
-                                               prim_counts)
+from qchem_rs_tpu_torch.ops.eri_kernel import (KERNEL_MAX_SIDE, bra_tiles, compact_order, compact_prims,
+                                               ket_contract, prim_counts, tile_values, tile_values_plain)
 from qchem_rs_tpu_torch.ops.fock import schwarz_bounds
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.ops.spherical import cart_to_sph, nsph
@@ -45,8 +45,8 @@ from qchem_rs_tpu_torch.utils.system import MolecularSystem
 
 #: largest pair-tile edge
 TILE = 32
-#: device bytes one tile batch may take (kernel output, or the twin's R
-#: tables on the CPU path)
+#: device bytes one tile batch may take (kernel 1's or kernel 3's output, or
+#: the twin's R tables on the CPU path)
 BATCH_BYTES = 1 << 29
 
 
@@ -219,31 +219,12 @@ def _tile_flops(m1: _ClassMeta, m2: _ClassMeta, T1: int, T2: int) -> float:
     return float(T1 * T2) * (elem + boys_f + base + rrec + r2m + dots)
 
 
-def ket_contract(bra: torch.Tensor, E2: torch.Tensor, tj, T2: int) -> torch.Tensor:
-    """Ket Hermite->Cartesian contraction of bra-contracted tiles.
-
-    bra (nt, A, c*S2, T1, T2) from ``bra_tiles``; E2 (N2, c, C, S2) the ket
-    class; tj the ket tile offsets, on the host or as a tensor on bra's
-    device. Returns the (nt, T1*A, T2*C) V2 blocks, rows (t1, alpha) and
-    columns (t2, gamma)."""
-    nt, A, cS2, T1, _ = bra.shape
-    C = E2.shape[2]
-    tj = torch.as_tensor(tj, dtype=torch.long, device=bra.device)
-    i2 = tj[:, None] + torch.arange(T2, device=bra.device)
-    E2t = E2[i2].permute(0, 1, 2, 4, 3).reshape(nt * T2, cS2, C)  # (nt*T2, (c,s2), C)
-    x = bra.permute(0, 4, 3, 1, 2).reshape(nt * T2, T1 * A, cS2)  # (nt*T2, (t1,alpha), (c,s2))
-    out = torch.bmm(x, E2t).reshape(nt, T2, T1 * A, C)
-    return out.permute(0, 2, 1, 3).reshape(nt, T1 * A, T2 * C)
-
-
 def _tile_vals(Lb: int, Lk: int, E1, p1, P1, E2, p2, P2):
     """One grid tile, the plain twin of the whole chain: (T1 bra pairs) x
     (T2 ket pairs) -> (T1*A, T2*C) block. E1 (T1, a, A, S1), p1 (T1, a),
     P1 (T1, a, 3); ket analogous — the JAX ``_tile_vals`` layouts."""
-    T1, T2 = E1.shape[0], E2.shape[0]
     zero = np.zeros(1, np.int64)
-    bra = bra_tiles_plain(Lb, Lk, E1, p1, P1, p2, P2, zero, zero, T1, T2)
-    return ket_contract(bra, E2, zero, T2)[0]
+    return tile_values_plain(Lb, Lk, E1, p1, P1, E2, p2, P2, zero, zero, E1.shape[0], E2.shape[0])[0]
 
 
 def mirror_inplace(V2: torch.Tensor, block: int = 2048) -> torch.Tensor:
@@ -331,25 +312,30 @@ class TiledEriEngine:
         return [compact_prims(*pad_group(g, m.npad), perm)
                 for g, m, perm in zip(groups, self.layout.metas, self._prim_orders)]
 
-    def batch_step(self, i1: int, i2: int, twin: bool = False) -> int:
-        """Tiles of class pair (i1, i2) in one kernel-1 call, so that one
-        batch stays under BATCH_BYTES: sized for the kernel's output on
-        CUDA, for the twin's R tables on the CPU or when ``twin`` is set."""
+    def batch_step(self, i1: int, i2: int, twin: bool | None = None, values: bool = False) -> int:
+        """Tiles of class pair (i1, i2) in one kernel call, so that one
+        batch stays under BATCH_BYTES: sized for the twin's R tables when
+        ``twin`` (by default on the CPU), else for the kernel's output:
+        kernel 3's finished blocks when ``values`` and Lb, Lk <= 4, kernel
+        1's bra-contracted tiles otherwise."""
         m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
-        twin = twin or self.device.type != "cuda"
-        L = m1.la + m1.lb + m2.la + m2.lb
-        S1, S2 = nhermite(m1.la + m1.lb), nhermite(m2.la + m2.lb)
-        per_tile = m1.tile * m2.tile * m2.a * 8 * (
-            m1.a * (2 * nhermite(L) + 2 * S1 * S2) if twin else m1.A * S2
-        )
-        return max(1, BATCH_BYTES // per_tile)
+        twin = self.device.type != "cuda" if twin is None else twin
+        Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
+        S1, S2 = nhermite(Lb), nhermite(Lk)
+        if twin:  # doubles per pair quartet of a tile
+            per_pair = m1.a * m2.a * (2 * nhermite(Lb + Lk) + 2 * S1 * S2)
+        elif values and max(Lb, Lk) <= KERNEL_MAX_SIDE:
+            per_pair = m1.A * m2.A
+        else:
+            per_pair = m1.A * m2.a * S2
+        return max(1, BATCH_BYTES // (8 * m1.tile * m2.tile * per_pair))
 
-    def batches(self, twin: bool = False, tasks=None):
-        """Every kernel-1 call of one ``build`` (or over ``tasks``, a list of
+    def batches(self, twin: bool | None = None, tasks=None, values: bool = False):
+        """Every kernel call of one ``build`` (or over ``tasks``, a list of
         (i1, i2, ti, tj) in the form of the engine's own): (i1, i2, ti, tj)
         with the tile lists cut by ``batch_step``."""
         for i1, i2, ti, tj in self._tasks if tasks is None else tasks:
-            step = self.batch_step(i1, i2, twin)
+            step = self.batch_step(i1, i2, twin, values)
             for s in range(0, len(ti), step):
                 yield i1, i2, ti[s : s + step], tj[s : s + step]
 
@@ -361,6 +347,23 @@ class TiledEriEngine:
         _, p2, P2 = self._padded[i2]
         return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile,
                   self._counts[i1], self._counts[i2], offsets)
+
+    @functools.cached_property
+    def _pair_last(self) -> list:
+        """Each class's E with the pair axis last, (c, C, S, N), as kernel
+        3 reads the class on its ket side."""
+        return [E.permute(1, 2, 3, 0).contiguous() for E, _, _ in self._padded]
+
+    def values_batch(self, i1, i2, ti, tj, fn=tile_values, offsets=None) -> torch.Tensor:
+        """Kernel 3 (or ``fn``, e.g. ``tile_values_plain``) on one batch of
+        tiles of class pair (i1, i2): the (nt, T1*A, T2*C) blocks;
+        ``offsets`` as ``tile_values`` takes them."""
+        m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
+        E1, p1, P1 = self._padded[i1]
+        E2, p2, P2 = self._padded[i2]
+        kw = {"E1t": self._pair_last[i1], "E2t": self._pair_last[i2]} if fn is tile_values else {}
+        return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, E2, p2, P2, ti, tj, m1.tile, m2.tile,
+                  self._counts[i1], self._counts[i2], offsets, **kw)
 
     def build(self) -> torch.Tensor:
         """All screened tiles of all class pairs into V2 (upper class
@@ -387,14 +390,7 @@ class TiledEriEngine:
             for i1, i2, ti, _ in self._tasks
         )
 
-    def bra_kernel_work(self, select=None, pairs=None) -> tuple[float, float]:
-        """(bytes, FLOPs) that kernel 1 must move and compute over one
-        ``build()``: each class's E, p, P read once plus every output
-        written once; ``_quartet_flops`` over the real primitive quartets
-        (nonzero E on both sides) of every executed tile. ``select(Lb, Lk)``
-        keeps only the class pairs for which it is true, and ``pairs``, a
-        set of class pairs (i1, i2), only those (the classes they read are
-        then the only inputs counted)."""
+    def _kernel_work(self, values: bool, select, pairs) -> tuple[float, float]:
         metas = self.layout.metas
         n = [c.n.cpu().numpy().astype(np.float64) for c in self._counts]
         tasks = [t for t in self._tasks if (pairs is None or t[:2] in pairs) and (
@@ -407,11 +403,33 @@ class TiledEriEngine:
             m1, m2 = metas[i1], metas[i2]
             Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
             S2 = nhermite(Lk)
-            nbytes += 8.0 * len(ti) * m1.A * m2.a * S2 * m1.tile * m2.tile
-            rows = n[i1][ti[:, None] + np.arange(m1.tile)].sum(axis=1)
-            cols = n[i2][tj[:, None] + np.arange(m2.tile)].sum(axis=1)
-            flops += float((rows * cols).sum()) * _quartet_flops(Lb + Lk, nhermite(Lb), S2, m1.A)
+            per_pair = m1.A * m2.A if values else m1.A * m2.a * S2
+            nbytes += 8.0 * len(ti) * per_pair * m1.tile * m2.tile
+            rows = n[i1][ti[:, None] + np.arange(m1.tile)]  # (nt, T1) real bra primitive pairs
+            cols = n[i2][tj[:, None] + np.arange(m2.tile)]
+            flops += float((rows.sum(axis=1) * cols.sum(axis=1)).sum()) * _quartet_flops(
+                Lb + Lk, nhermite(Lb), S2, m1.A)
+            if values:  # the ket dot: each real ket primitive pair of a bra pair with any
+                flops += float(((rows > 0).sum(axis=1) * cols.sum(axis=1)).sum()) * 2.0 * S2 * m1.A * m2.A
         return nbytes, flops
+
+    def bra_kernel_work(self, select=None, pairs=None) -> tuple[float, float]:
+        """(bytes, FLOPs) that kernel 1 must move and compute over one
+        ``build()``: each class's E, p, P read once plus every output
+        written once; ``_quartet_flops`` over the real primitive quartets
+        (nonzero E on both sides) of every executed tile. ``select(Lb, Lk)``
+        keeps only the class pairs for which it is true, and ``pairs``, a
+        set of class pairs (i1, i2), only those (the classes they read are
+        then the only inputs counted)."""
+        return self._kernel_work(False, select, pairs)
+
+    def values_kernel_work(self, select=None, pairs=None) -> tuple[float, float]:
+        """(bytes, FLOPs) that kernel 3 must move and compute over the same
+        tiles, as ``bra_kernel_work`` counts them: the inputs plus the
+        finished (T1*A, T2*C) blocks, and ``_tile_flops``' model with both
+        dots over the real primitive quartets (the ket dot once per real
+        ket primitive pair of each bra pair that has a real one)."""
+        return self._kernel_work(True, select, pairs)
 
     @functools.cached_property
     def sph_layout(self) -> SphericalPairLayout:

@@ -1,11 +1,15 @@
 """Streaming integral-direct Fock build (port of
 ``qchem_rs_tpu/ops/fock_stream.py::StreamingFockBuilder``).
 
-Nothing of size M^2 is stored: every J/K call runs kernel 1 over all
-screened tiles of the pair-space ERI matrix again (the engine's own task
-lists and batches), contracts the ket side (``ket_contract``) and digests
-each batch of (nt, T1*A, T2*C) tile values into J and K at once, for a
-stack of nd densities (nd = 2 digests both UHF spins against one pass).
+Nothing of size M^2 is stored: every J/K call computes all screened
+tiles of the pair-space ERI matrix again (the engine's own task lists, in
+batches sized for the values) and digests each batch of (nt, T1*A, T2*C)
+tile values into J and K at once, for a stack of nd densities (nd = 2
+digests both UHF spins against one pass). Kernel 3
+(``eri_kernel.tile_values``, the counterpart of the JAX package's
+``tile_vals_pallas``) gives the values of the class pairs with Lb, Lk <= 4
+in one launch a batch; the f-shell class pairs take kernel 1's high-L part
+and the ket contraction (``ket_contract``).
 
 Coverage: tasks hold class pairs i1 <= i2 and, within a class, the square
 tiles on and above the diagonal. Every block is digested as itself and as
@@ -63,7 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from qchem_rs_tpu_torch.ops.angular import ncart
-from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, ket_contract
+from qchem_rs_tpu_torch.ops.eri_kernel import KERNEL_MAX_SIDE, ket_contract
+from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.ops.fock_pair import in_working_basis, pair_weights
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
 
@@ -127,27 +132,35 @@ class StreamingFockBuilder:
         if mesh is not None:  # this rank's share of each class pair's tiles
             shares = [mesh.share(len(ti)) for _, _, ti, _ in tasks]
             tasks = [(i1, i2, ti[s], tj[s]) for (i1, i2, ti, tj), s in zip(tasks, shares)]
-        #: every kernel-1 call of one pass: (i1, i2, ti, tj), the V2 build's
-        #: batches (the host spends about 2 ms on a batch, so fewer and
-        #: larger batches are faster); over a mesh, this rank's share
-        self.batches = list(eng.batches(tasks=tasks))
+        # batches sized for kernel 3's output (the host spends about 2 ms on
+        # a batch, so fewer and larger batches are faster); over a mesh,
+        # this rank's share
+        self._plan(list(eng.batches(tasks=tasks, values=True)))
+
+    def _plan(self, batches: list) -> None:
+        """Take ``batches``, (i1, i2, ti, tj) as ``TiledEriEngine.batches``
+        cuts them, as the kernel calls of every pass."""
+        dev = self.engine.device
+        #: every kernel call of one pass: (i1, i2, ti, tj)
+        self.batches = batches
         # the tile offsets of each batch on the device, copied once: a copy
         # from host memory at every pass would make the host wait for the
         # device three times a batch
+        i64 = lambda x: torch.as_tensor(x, dtype=torch.long, device=dev)  # noqa: E731
         i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-        self._offsets = [(i64(ti), i64(tj), (i32(ti), i32(tj))) for _, _, ti, tj in self.batches]
-
-    def bra_values(self, k: int) -> torch.Tensor:
-        """Kernel 1 on batch ``k`` of ``batches``."""
-        i1, i2, ti, tj = self.batches[k]
-        return self.engine.bra_batch(i1, i2, ti, tj, offsets=self._offsets[k][2])
+        self._offsets = [(i64(ti), i64(tj), (i32(ti), i32(tj))) for _, _, ti, tj in batches]
 
     def tile_values(self, k: int) -> torch.Tensor:
-        """The (nt, T1*A, T2*C) V2 blocks of batch ``k``: kernel 1, then the
-        ket contraction."""
-        i2 = self.batches[k][1]
-        return ket_contract(self.bra_values(k), self.engine._padded[i2][0], self._offsets[k][1],
-                            self.engine.layout.metas[i2].tile)
+        """The (nt, T1*A, T2*C) V2 blocks of batch ``k``: kernel 3, or for
+        an f-shell class pair kernel 1's high-L part and the ket
+        contraction."""
+        i1, i2, ti, tj = self.batches[k]
+        eng, (_, tj_d, offsets) = self.engine, self._offsets[k]
+        m1, m2 = eng.layout.metas[i1], eng.layout.metas[i2]
+        if max(m1.la + m1.lb, m2.la + m2.lb) <= KERNEL_MAX_SIDE:
+            return eng.values_batch(i1, i2, ti, tj, offsets=offsets)
+        return ket_contract(eng.bra_batch(i1, i2, ti, tj, offsets=offsets), eng._padded[i2][0], tj_d,
+                            m2.tile)
 
     def _digest(self, i1, i2, ti_d, tj_d, vals, D, dJ, Jp, K1) -> None:
         """Add one batch's tile values (halved in place on diagonal tiles
@@ -221,7 +234,7 @@ class StreamingFockBuilder:
 
     def jk_stack_cart(self, D: torch.Tensor):
         """J and K stacks (nd, nao, nao) of a stack of symmetric densities
-        (nd, nao, nao): one pass of kernel 1 over every screened tile (over
+        (nd, nao, nao): one pass of the kernels over every screened tile (over
         a mesh, this rank's share, then one ``all_reduce`` of Jp and one of
         K1)."""
         Jp, K1 = self._local_pass(D)

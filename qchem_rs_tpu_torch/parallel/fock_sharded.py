@@ -3,8 +3,8 @@
 
 The Schwarz-screened tile lists of the streaming direct build
 (``ops/fock_stream.py``) are shared over the ranks of a mesh: every rank
-runs kernel 1 on its tiles and digests them into local J/K partials, and
-one ``all_reduce`` each sums the partials. The dense SCF algebra (eigh,
+runs the direct pass's kernels on its tiles and digests them into local
+J/K partials, and one ``all_reduce`` each sums the partials. The dense SCF algebra (eigh,
 DIIS, X) stays replicated. This is the compute-scaling builder;
 ``ops/fock_pair.PairSpaceShardedFockBuilder`` and
 ``parallel/v2_sharded.ColumnShardedPairFockBuilder`` scale the memory.

@@ -1,4 +1,5 @@
-"""Both hand-written CUDA kernels against their plain twins on the card,
+"""The hand-written CUDA kernels against their plain twins on the card
+(kernel 3, the direct pass's tile values, for all 25 (Lb, Lk) <= (4, 4)),
 the port's RHF through them, bitwise repeats (kernel 2, the direct build's
 J and K, whole RHF runs in each Fock mode, and CCSD(T)), MP2 and CCSD(T)
 on the card against the port on the CPU, a closed-shell CCSD step and
@@ -144,6 +145,61 @@ def test_cuda_dispatch_serves_every_class_up_to_f_pairs(cuda):
         eri_kernel.bra_tiles(7, 0, *args, np.array([0]), np.array([0]), 4, 4, *counts)
 
 
+#: every class pair of kernel 3: Lb, Lk <= 4
+VALUES_CLASSES = [(lb, lk) for lb in range(5) for lk in range(5)]
+
+
+def _ragged_values_classes(rng, Lb, Lk, a, c, T1, T2, device, which=0, zero_rows=1):
+    """Bra and ket classes of two tile blocks each, E of both sides whole
+    (N, n, A, S), zero-E primitive pairs interleaved (counts 1..n, the last
+    ``zero_rows`` bra pairs all zero), compacted and counted as the engine
+    does; A and C the ``which``-th component counts of the pair classes."""
+    comps = [[ncart(L - lb) * ncart(lb) for lb in range(L // 2 + 1)] for L in (Lb, Lk)]
+    A, C = (x[which % len(x)] for x in comps)
+    sides = []
+    for L, n, T, X, zero in ((Lb, a, T1, A, zero_rows), (Lk, c, T2, C, 0)):
+        N = 2 * T
+        E = rng.standard_normal((N, n, X, nhermite(L)))
+        for i in range(N):
+            E[i, rng.permutation(n)[: n - rng.integers(1, n + 1)]] = 0.0
+        E[N - zero:] = 0.0
+        side = eri_kernel.compact_prims(*(torch.tensor(x, device=device) for x in (
+            E, rng.uniform(0.3, 8.0, (N, n)), rng.standard_normal((N, n, 3)) * 1.5)))
+        sides.append((side, eri_kernel.prim_counts(side[0], T)))
+    ((E1, p1, P1), bra), ((E2, p2, P2), ket) = sides
+    return (E1, p1, P1, E2, p2, P2), bra, ket
+
+
+@pytest.mark.parametrize("Lb,Lk", VALUES_CLASSES)
+def test_tile_values_kernel_ragged_counts_match_twin(cuda, Lb, Lk):
+    # kernel 3 against ket_contract(bra_tiles_plain(...)) with ragged counts,
+    # at the largest tile edge (32) and with ket tiles of one pair and a
+    # third of the bra rows without a real primitive pair
+    rng = np.random.default_rng(500 + Lb * 5 + Lk)
+    prims = [9, 4, 3, 2, 1]
+    for which, (T1, T2, zero_rows) in enumerate(((32, 32, 1), (16, 1, 11))):
+        args, bra, ket = _ragged_values_classes(rng, Lb, Lk, prims[Lb], prims[Lk], T1, T2, cuda,
+                                                which, zero_rows)
+        ti, tj = np.array([0, T1, T1, 0]), np.array([T2, 0, T2, 0])
+        before = eri_kernel.VALUES_KERNEL.launches
+        out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+        ref = eri_kernel.tile_values_plain(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+        torch.cuda.synchronize()
+        assert eri_kernel.VALUES_KERNEL.launches == before + 1
+        assert out.shape == ref.shape == (4, T1 * args[0].shape[2], T2 * args[3].shape[2])
+        assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("Lb,Lk", [(0, 0), (1, 1), (2, 3), (4, 4)])
+def test_tile_values_kernel_twice_is_bitwise_equal(cuda, Lb, Lk):
+    # a fixed summation order: no atomics
+    rng = np.random.default_rng(600 + Lb * 5 + Lk)
+    args, bra, ket = _ragged_values_classes(rng, Lb, Lk, 3, 3, 32, 32, cuda)
+    ti, tj = np.array([0, 32, 32]), np.array([32, 0, 32])
+    out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, 32, 32, bra, ket)
+    assert torch.equal(out, eri_kernel.tile_values(Lb, Lk, *args, ti, tj, 32, 32, bra, ket))
+
+
 def test_kernel_boys_matches_boys(cuda):
     from qchem_rs_tpu_torch.ops.boys import boys
 
@@ -218,10 +274,12 @@ def test_direct_jk_on_card_matches_cpu_twin(cuda):
     system = _water_ccpvdz()
     D = _density_stack(2, system.n_basis(), 2)
     builder = StreamingFockBuilder(system, 1e-12, device=cuda)
-    before = eri_kernel.KERNEL.launches
+    before = eri_kernel.VALUES_KERNEL.launches, eri_kernel.KERNEL.launches
     J, K = builder.jk_stack_cart(D.to(cuda))
     torch.cuda.synchronize()
-    assert eri_kernel.KERNEL.launches == before + len(builder.batches)
+    # water/cc-pVDZ has no f shell: every batch goes through kernel 3
+    assert eri_kernel.VALUES_KERNEL.launches == before[0] + len(builder.batches)
+    assert eri_kernel.KERNEL.launches == before[1]
     J_cpu, K_cpu = StreamingFockBuilder(system, 1e-12, device="cpu").jk_stack_cart(D)
     scale = max(float(J_cpu.abs().max()), 1.0)
     assert float((J.cpu() - J_cpu).abs().max()) / scale <= 1e-11
@@ -244,7 +302,9 @@ def test_direct_jk_twice_is_bitwise_equal(cuda):
     system = _water_ccpvdz()
     D = _density_stack(1, system.n_basis(), 3)[0].to(cuda)
     builder = StreamingFockBuilder(system, 1e-12, device=cuda)
+    before = eri_kernel.VALUES_KERNEL.launches
     (J1, K1), (J2, K2) = builder.jk(D), builder.jk(D)
+    assert eri_kernel.VALUES_KERNEL.launches == before + 2 * len(builder.batches)
     assert torch.equal(J1, J2) and torch.equal(K1, K2)
 
 

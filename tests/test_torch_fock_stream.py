@@ -1,7 +1,8 @@
 """Port parity, the streaming integral-direct Fock build:
-``qchem_rs_tpu_torch.ops.fock_stream`` on the CPU (kernel 1 through its plain
+``qchem_rs_tpu_torch.ops.fock_stream`` on the CPU (kernel 3 through its plain
 twin) against the JAX package's ``StreamingFockBuilder`` and against the
-port's own pair-space builder."""
+port's own pair-space builder, in the CPU's batches and in kernel 3's batch
+rule cut small."""
 
 import os
 
@@ -14,6 +15,7 @@ from qchem_rs_tpu.ops.fock_stream import StreamingFockBuilder as JaxStreamingBui
 from qchem_rs_tpu.utils.basis import BasisSet as JaxBasisSet
 from qchem_rs_tpu.utils.system import MolecularSystem as JaxSystem
 from qchem_rs_tpu_torch import BasisSet, MolecularSystem
+from qchem_rs_tpu_torch.ops import eri_tiled
 from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder
 from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -104,3 +106,37 @@ def test_batches_cover_every_tile_once(methane):
     got = sorted((i1, i2, a, b) for i1, i2, ti, tj in direct.batches for a, b in zip(ti, tj))
     want = sorted((i1, i2, a, b) for i1, i2, ti, tj in direct.engine._tasks for a, b in zip(ti, tj))
     assert got == want
+
+
+def _kernel3_batches(builder, monkeypatch):
+    """Cut the builder's pass in kernel 3's batch rule (as on the card),
+    with a batch budget small enough that class pairs of several tiles take
+    several batches; the shared builder gets its own batches back after
+    the test."""
+    monkeypatch.setattr(eri_tiled, "BATCH_BYTES", 1 << 13)
+    monkeypatch.setattr(builder, "batches", builder.batches)
+    monkeypatch.setattr(builder, "_offsets", builder._offsets)
+    eng = builder.engine
+    builder._plan(list(eng.batches(twin=False, values=True)))
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+def test_jk_stack_in_kernel3_batches_matches_jax(water, nd, monkeypatch):
+    builder, D, J_ref, K_ref = water
+    _kernel3_batches(builder, monkeypatch)
+    J, K = builder.jk_stack_cart(torch.tensor(D[:nd]))
+    assert _rel(J, J_ref[:nd]) < 1e-11
+    assert _rel(K, K_ref[:nd]) < 1e-11
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+def test_jk_stack_in_kernel3_batches_matches_pair_builder(methane, nd, monkeypatch):
+    direct, pair = methane
+    _kernel3_batches(direct, monkeypatch)
+    assert len(direct.batches) > len(direct.engine._tasks)
+    D = torch.tensor(_densities(nd, direct.nao, 11))
+    J, K = direct.jk_stack_cart(D)
+    for s in range(nd):
+        J_ref, K_ref = pair.jk(D[s])
+        assert _rel(J[s], J_ref) < 1e-11
+        assert _rel(K[s], K_ref) < 1e-11

@@ -33,14 +33,21 @@ def kummer_coefficients(mmax: int) -> list[float]:
     return coefs
 
 
-def boys_reciprocal(mmax: int, T: torch.Tensor) -> torch.Tensor:
+def boys_reciprocal(mmax: int, T: torch.Tensor, rsqrt: bool = False) -> torch.Tensor:
     """F_0..F_mmax at T in the CUDA kernel's arithmetic, shape
     (mmax+1,) + T.shape: the branches of ``boys`` with every division in a
     loop replaced by a product with a constant reciprocal (the series by
-    Horner's rule on ``kummer_coefficients``), and one 1/T per point."""
+    Horner's rule on ``kummer_coefficients``), and one 1/T per point; with
+    ``rsqrt`` (``boys<M, true>``, kernel 3) sqrt(T) and 1/T from one
+    1/sqrt(T)."""
     Tc = torch.clamp(T, min=1e-30)
-    invT = 1.0 / Tc
-    F0 = 0.5 * torch.sqrt(math.pi * invT) * torch.erf(torch.sqrt(Tc))
+    if rsqrt:
+        rT = torch.rsqrt(Tc)
+        invT = rT * rT
+        F0 = (0.5 * math.sqrt(math.pi)) * rT * torch.erf(Tc * rT)
+    else:
+        invT = 1.0 / Tc
+        F0 = 0.5 * torch.sqrt(math.pi * invT) * torch.erf(torch.sqrt(Tc))
     if mmax == 0:
         taylor = [1.0 / (math.factorial(k) * (2 * k + 1)) for k in range(7)]
         f0_taylor = torch.full_like(T, taylor[6])
@@ -90,6 +97,17 @@ def test_boys_reciprocal_matches_boys(order):
     ref = port_boys.boys(order, T)
     out = boys_reciprocal(order, T)
     assert out.shape == ref.shape == (order + 1, T.numel())
+    assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-14
+
+
+@pytest.mark.parametrize("order", range(9))
+def test_boys_rsqrt_form_matches_boys(order):
+    # kernel 3's form of the closed-form branch (boys<M, true>): sqrt(T) and
+    # 1/T from one reciprocal square root
+    T = torch.cat([torch.linspace(0.0, 50.0, 5001, dtype=torch.float64),
+                   torch.tensor([0.0, 1e-12, 0.0099999, 0.01, order + 1.5], dtype=torch.float64)])
+    ref = port_boys.boys(order, T)
+    out = boys_reciprocal(order, T, rsqrt=True)
     assert float(((out - ref).abs() / ref.abs()).max()) <= 1e-14
 
 
