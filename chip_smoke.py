@@ -9,12 +9,14 @@
 Builds the hand-written kernels from ``qchem_rs_tpu_torch/csrc`` (every
 nvcc process started together; kernel 1 in its two parts, the template
 ``eri_tile.cu`` and the high-L ``eri_tile_highl.cu``, kernel 2, and kernel
-3, the direct pass's tile values ``eri_tile_values.cu``) and prints the
-build time and ptxas's registers, stack frame and spills for every
-instantiation; holds each kernel against its plain PyTorch twin on the
-card (kernel 3 for all 25 (Lb, Lk) <= (4, 4) with ragged primitive
-counts, at tile edge 32 and with ket tiles of one pair and empty bra rows,
-two launches bit-identical; kernel 1 for all 49 (Lb, Lk) <= (6, 6) with
+3, the direct pass's tile values, in its two parts ``eri_tile_values.cu``
+and ``eri_tile_values_highl.cu``) and prints the build time and ptxas's
+registers, stack frame and spills for every instantiation; holds each
+kernel against its plain PyTorch twin on the card (kernel 3 for all 25
+(Lb, Lk) <= (4, 4) and its high-L part for the 24 class pairs with a side
+of 5 or 6, from both sides, with ragged primitive counts, at tile edge 32
+and with ket tiles of one pair and empty bra rows, two launches
+bit-identical; kernel 1 for all 49 (Lb, Lk) <= (6, 6) with
 ragged primitive counts,
 and its high-L part in all 24 of its (Lb, Lk) at the (xx|ff) shapes of
 ferrocene: ket tiles of one pair, bra tiles of 16, empty bra rows and the
@@ -35,10 +37,17 @@ and the digestion; and UHF
 on OH (doublet) and O2 (triplet) in 6-31G through the three modes. Then
 every basis: spherical naphthalene/cc-pVDZ (SAD) and UHF OH/6-31G*
 (spherical) in the three modes; ferrocene/6-31G* (Cartesian, f shells on
-Fe, SAD) in the three modes, which runs the high-L part, timed on the
-build's f-shell class pairs (CUDA events around the calls, as every
-kernel is timed, and its kernels' device time from torch.profiler, in all
-and by class pair beside each class's own bound); and the Zn atom in
+Fe, SAD) in the three modes, which runs the high-L parts (kernel 1's on
+the builds, kernel 3's on the direct passes, and kernel 1 never on a
+direct path), kernel 1's timed on the build's f-shell class pairs (CUDA
+events around the calls, as every kernel is timed, and its kernels'
+device time from torch.profiler, in all and by class pair beside each
+class's own bound), kernel 3's on the f-shell class pairs of one direct
+pass at the pair SCF's density against its twin (relaunched in equal
+bits), against the old route (kernel 1's high-L part + ``ket_contract``)
+over the same tiles in turns and by class pair, beside its bound, with
+the pass by part (kernel 3's template part, the f-shell class pairs, the
+digestion); and the Zn atom in
 6-31G* on the card against
 the port on the CPU. Then this slice's paths: bitwise repeats (kernel 2
 at m = 150, 14400, 14401 and on the naphthalene V2f, a direct J/K pass,
@@ -86,7 +95,8 @@ unsharded pair build, RHF within 1e-9 Eh, the direct run repeated in
 equal bits, each builder's prepare and J/K time and peak memory), sharded
 MP2 through both pair builders, rank views of 4 and 3 on the one card
 (their shares added in rank order; the column slabs reassembling V2f; the
-pair slabs V2f's and W's columns in equal bits); and the CLI's ``sweep``
+pair slabs V2f's and W's columns in equal bits, in unequal shares where
+the mesh size does not divide M); and the CLI's ``sweep``
 and ``sweep --chain`` as subprocesses. NCCL between cards is not run:
 there is one card. Every phase
 fails loudly; the script exits non-zero
@@ -94,7 +104,9 @@ on any failed check and when CUDA is not available. Two lines before the
 last are JSON objects: the launches of every path, and one entry per
 kernel (the template part and kernel 2 at the benzene in-core shapes, the
 high-L part at the ferrocene build's, kernel 3 over a naphthalene direct
-pass, its launches those of the naphthalene direct run; ``launches_rhf_ccsd_t`` counts the
+pass, its launches those of the naphthalene direct run, and its high-L
+part over a ferrocene direct pass's f-shell class pairs, its launches
+those of the ferrocene direct run; ``launches_rhf_ccsd_t`` counts the
 benzene RHF + CCSD(T) path, ``launches_rhf_gradient`` the benzene RHF +
 gradient path, ``launches_sweep`` the benzene conformer sweep); the last
 line is a JSON object naming the device.
@@ -159,6 +171,11 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / float(ref.abs().max())
 
 
+def class_name(m1, m2) -> str:
+    """A class pair's name, "(ps|fd)", from its two classes' layouts."""
+    return "({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb)))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` calls, after one
     warm-up call (CUDA events around the whole run)."""
@@ -208,6 +225,7 @@ def print_ptxas(kernel) -> None:
             mangled = m.group(1)
             args = ",".join(re.findall(r"Li(\d+)E", mangled))
             base = re.search(r"(eri_bra_tiles_highl_kernel|eri_bra_tiles_kernel|eri_tile_values_row_kernel|"
+                             r"eri_tile_values_highl_kernel|"
                              r"eri_tile_values_shared_kernel|boys_probe_kernel|fock_matvec_kernel)", mangled)
             name = f"{base.group(1) if base else mangled}<{args}>"
             continue
@@ -342,6 +360,51 @@ def check_kernel3(eri_kernel, ncart) -> float:
                 if not (rel <= KERNEL3_RTOL and same):
                     fail(f"kernel 3 disagrees with its twin or itself at Lb={Lb} Lk={Lk} T2={T2}")
                 worst = max(worst, err)
+    return worst
+
+
+def check_values_highl(eri_kernel, ncart) -> float:
+    """Kernel 3's high-L part against its twin for all 24 of its (Lb, Lk)
+    (a side of 5 or 6) with ragged primitive counts, from both sides, at
+    the largest tile edge (32, four tiles per call) with the largest
+    component counts, and at the shapes of ferrocene's (xx|ff) class pairs:
+    ket tiles of one pair, bra tiles of 16 of which 11 rows hold no real
+    primitive pair, and the smallest component counts; each launched twice,
+    bit-identical. Returns the worst abs error."""
+    rng = np.random.default_rng(10)
+    prims = [9, 4, 3, 2, 1, 2, 1]
+    part = eri_kernel.VALUES_HIGHL_KERNEL
+    worst = 0.0
+    for Lb in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+        for Lk in range(eri_kernel.HIGHL_MAX_SIDE + 1):
+            if max(Lb, Lk) <= eri_kernel.KERNEL_MAX_SIDE:
+                continue
+            comps = [[ncart(L - lb) * ncart(lb) for lb in range(L // 2 + 1)] for L in (Lb, Lk)]
+            for pick, T1, T2, zero_rows in ((max, 32, 32, 1), (min, 16, 1, 11)):
+                A, C = pick(comps[0]), pick(comps[1])
+                (E1, p1, P1, p2, P2), bra, ket, E2 = ragged_class(
+                    rng, eri_kernel, Lb, Lk, prims[Lb], prims[Lk], A, T1, T2, zero_rows, C)
+                args = (E1, p1, P1, E2, p2, P2)
+                ti, tj = np.array([0, T1, T1, 0]), np.array([T2, 0, T2, 0])
+                ref = eri_kernel.tile_values_plain(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+                for trans in (False, True):
+                    before = part.launches
+                    out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket, trans=trans)
+                    again = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket,
+                                                   trans=trans)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(out, ref)
+                    same = torch.equal(out, again)
+                    print(f"kernel3 {part.source} Lb={Lb} Lk={Lk} A={A} C={C} T1={T1} T2={T2} from "
+                          f"its {'ket' if trans else 'bra'} side (ragged counts, "
+                          f"{int((bra.n == 0).sum())} bra pairs without real prims): max rel err "
+                          f"{rel:.3e}, two launches bit-identical {same}", flush=True)
+                    if part.launches != before + 2:
+                        fail(f"class ({Lb}, {Lk}) did not launch kernel 3's high-L part")
+                    if not (rel <= KERNEL3_RTOL and same):
+                        fail(f"kernel 3's high-L part disagrees with its twin or itself at Lb={Lb} "
+                             f"Lk={Lk} T2={T2} trans={trans}")
+                    worst = max(worst, err)
     return worst
 
 
@@ -556,6 +619,8 @@ def drive(kernels: dict, label: str, fn, used: tuple, budget=None):
     missing = [name for name in used if launches[name] == 0]
     if missing:
         fail(f"{label} bypassed {missing}: {launches}")
+    if "eri_tile_values" in used and launches.get("eri_tile_highl", 0):
+        fail(f"{label}, a direct path, launched kernel 1's high-L part: {launches}")
     return out, launches, peak, wall
 
 
@@ -753,8 +818,8 @@ def direct_pass_numbers(system, density, eri_kernel, profile: bool = False) -> d
         m1, m2 = metas[i1], metas[i2]
         ms = cuda_ms(lambda: values(ks), 3)
         cb, cf = eng.values_kernel_work(pairs={(i1, i2)})
-        name = "({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb)))
-        rows.append((ms, name, len(ks), max(cb / HBM_BYTES_PER_S, cf / FP64_FLOP_PER_S) * 1e3, cf))
+        rows.append((ms, class_name(m1, m2), len(ks),
+                     max(cb / HBM_BYTES_PER_S, cf / FP64_FLOP_PER_S) * 1e3, cf))
     summed = sum(r[0] for r in rows)
     for ms, name, n, bound, cf in sorted(rows, reverse=True)[:5]:
         print(f"kernel 3 class {name}: {ms:.4f} ms ({ms / summed:.3f} of the class pairs' sum "
@@ -871,13 +936,13 @@ def uhf_spherical(Q, kernels: dict, paths: dict) -> None:
 def ferrocene(Q, kernels: dict, paths: dict):
     """RHF on ferrocene/6-31G* (Cartesian, 209 AOs, an f shell on Fe) from
     the SAD guess through the three Fock modes: every build and direct pass
-    runs the high-L part. Returns the system and the in-core run's
-    launches."""
+    runs kernel 1's high-L part, every direct pass kernel 3's. Returns the
+    system, the in-core run's launches and the pair run."""
     system = load_system(Q, "ferrocene", "6-31G_st")
     hl = ("eri_tile", "eri_tile_highl")
-    energies, incore = [], None
+    energies, incore, pair = [], None, None
     for mode, used in (("incore", hl + ("fock_matvec",)), ("pair", hl + ("fock_matvec",)),
-                       ("direct", ("eri_tile_values", "eri_tile_highl"))):
+                       ("direct", ("eri_tile_values", "eri_tile_values_highl"))):
         cfg = Q.HartreeFockConfig(epsilon=1e-8, max_iterations=200, fock_mode=mode,
                                   initial_guess="sad")
         out, launches, peak, _ = drive(
@@ -887,12 +952,13 @@ def ferrocene(Q, kernels: dict, paths: dict):
             launches, iterations=out.iterations, peak_bytes=peak, total_s=out.timings["total_s"])
         energies.append(out.total_energy())
         incore = launches if mode == "incore" else incore
+        pair = out if mode == "pair" else pair
     spread = max(energies) - min(energies)
     print(f"ferrocene/6-31G*: {system.n_basis()} AOs, E {energies[0]:.10f}, spread {spread:.2e} Eh "
           f"over the modes", flush=True)
     if spread > 1e-7:
         fail(f"ferrocene/6-31G* modes disagree: {energies}")
-    return system, incore
+    return system, incore, pair
 
 
 def class_shape(engine, batch, sms: int) -> tuple:
@@ -940,9 +1006,7 @@ def time_highl(system, eri_kernel) -> dict:
         fail("the ferrocene build's f-shell class pairs did not launch the high-L part")
     by_class: dict = {}
     for b in kernel_batches:
-        m1, m2 = metas[b[0]], metas[b[1]]
-        by_class.setdefault("({}{}|{}{})".format(*("spdfghi"[l] for l in (m1.la, m1.lb, m2.la, m2.lb))),
-                            []).append(b)
+        by_class.setdefault(class_name(metas[b[0]], metas[b[1]]), []).append(b)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for k, bs in by_class.items():
@@ -969,6 +1033,121 @@ def time_highl(system, eri_kernel) -> dict:
           f"{plain_ms:.3f} ms, max abs err {worst:.3e}; must move {nbytes / 1e9:.3f} GB "
           f"({bytes_ms:.4f} ms) and do {flops / 1e9:.2f} GFLOP over the real primitive quartets "
           f"({flops_ms:.4f} ms): bound {res['bound_ms']:.4f} ms by {res['bound_by']}", flush=True)
+    return res
+
+
+def ferrocene_direct_numbers(system, density, eri_kernel) -> dict:
+    """Kernel 3's high-L part on the f-shell class pairs of one ferrocene
+    direct pass, at the pair SCF's density: against its twin on every
+    twin-sized batch, relaunched in equal bits; one pass's launches (kernel
+    3's two parts, kernel 1 none) and two passes equal in bits; then, in
+    turns in this run, the new part over the pass's f-shell batches and the
+    old route over the same tiles (kernel 1's high-L part in its own
+    batches, then ``ket_contract``), the twin, the bound
+    (``values_kernel_work`` over those class pairs), each class pair on
+    its own, and the pass by part: kernel 3's template part on the class
+    pairs with Lb, Lk <= 4, the f-shell class pairs, and the digestion (the
+    whole pass less both)."""
+    from qchem_rs_tpu_torch.ops.eri_kernel import ket_contract
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    builder = StreamingFockBuilder(system, 1e-12, device="cuda")
+    eng = builder.engine
+    metas = eng.layout.metas
+
+    def highl(i1, i2):
+        return max(metas[i1].la + metas[i1].lb, metas[i2].la + metas[i2].lb) > \
+            eri_kernel.KERNEL_MAX_SIDE
+
+    ks_hi = [k for k, b in enumerate(builder.batches) if highl(*b[:2])]
+    ks_lo = [k for k, b in enumerate(builder.batches) if not highl(*b[:2])]
+    old_batches = [b for b in eng.batches(values=False) if highl(*b[:2])]
+    twin_batches = [b for b in eng.batches(twin=True) if highl(*b[:2])]
+    worst, same = 0.0, True
+    for b in twin_batches:
+        out, again = eng.values_batch(*b), eng.values_batch(*b)
+        ref = eng.values_batch(*b, fn=eri_kernel.tile_values_plain)
+        err, rel = rel_err(out, ref)
+        same = same and torch.equal(out, again)
+        if not rel <= KERNEL3_RTOL:
+            fail(f"kernel 3's high-L part disagrees with its twin on ferrocene class pair "
+                 f"{class_name(metas[b[0]], metas[b[1]])}: {rel:.3e}")
+        worst = max(worst, err)
+    print(f"kernel 3's high-L part on ferrocene's {len(twin_batches)} twin-sized f-shell batches: "
+          f"max abs err {worst:.3e}, relaunches bit-identical {same}", flush=True)
+    if not same:
+        fail("two launches of kernel 3's high-L part on a ferrocene batch differ")
+    D = torch.tensor(density, device="cuda")[None]
+    parts = (eri_kernel.VALUES_KERNEL, eri_kernel.VALUES_HIGHL_KERNEL, eri_kernel.KERNEL,
+             eri_kernel.HIGHL_KERNEL)
+    before = [k.launches for k in parts]
+    J1, K1 = builder.jk_stack_cart(D)
+    torch.cuda.synchronize()
+    per_pass = [k.launches - b for k, b in zip(parts, before)]
+    J2, K2 = builder.jk_stack_cart(D)
+    same = torch.equal(J1, J2) and torch.equal(K1, K2)
+    print(f"direct pass on ferrocene twice: J and K bit-identical {same}; launches a pass: kernel 3 "
+          f"{per_pass[0]}, its high-L part {per_pass[1]}, kernel 1 {per_pass[2]} and {per_pass[3]}",
+          flush=True)
+    if not same:
+        fail("two direct passes on the same ferrocene density differ")
+    if per_pass != [len(ks_lo), len(ks_hi), 0, 0]:
+        fail(f"a ferrocene direct pass launched {per_pass}, not [{len(ks_lo)}, {len(ks_hi)}, 0, 0]")
+
+    def values(ks):
+        for k in ks:
+            builder.tile_values(k)
+
+    def old():
+        for i1, i2, ti, tj in old_batches:
+            ket_contract(eng.bra_batch(i1, i2, ti, tj), eng._padded[i2][0], tj, metas[i2].tile)
+
+    new_ms, old_ms, lo_ms, full = [], [], [], []
+    for _ in range(2):  # in turns: new part, old route, old route, new part
+        new_ms.append(cuda_ms(lambda: values(ks_hi), 5))
+        old_ms.append(cuda_ms(old, 5))
+        old_ms.append(cuda_ms(old, 5))
+        new_ms.append(cuda_ms(lambda: values(ks_hi), 5))
+        lo_ms.append(cuda_ms(lambda: values(ks_lo), 3))
+        full.append(cuda_ms(lambda: builder.jk_stack_cart(D), 3))
+    plain_ms = cuda_ms(
+        lambda: [eng.values_batch(*b, fn=eri_kernel.tile_values_plain) for b in twin_batches], 1)
+    dev_ms = device_ms(lambda: values(ks_hi), 5, ("eri_tile_values_highl",))
+    nbytes, flops = eng.values_kernel_work(lambda Lb, Lk: max(Lb, Lk) > eri_kernel.KERNEL_MAX_SIDE)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
+    res = {"launches_per_pass": len(ks_hi), "max_abs_err": worst, "ms": float(np.mean(new_ms)),
+           "device_ms": dev_ms, "old_route_ms": float(np.mean(old_ms)), "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, flops_ms), "library_ms": None,
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    pass_ms, lo = float(np.mean(full)), float(np.mean(lo_ms))
+    print(f"ferrocene f-shell class pairs of a direct pass ({len(ks_hi)} launches of kernel 3's "
+          f"high-L part, {len(old_batches)} of kernel 1's in its own batches): new part "
+          f"{res['ms']:.4f} ms (runs {new_ms}; its kernel on the device {dev_ms:.4f} ms), old route "
+          f"kernel 1's high-L part + ket_contract over the same tiles {res['old_route_ms']:.4f} ms "
+          f"(runs {old_ms}), twin {plain_ms:.3f} ms; must move {nbytes / 1e9:.4f} GB "
+          f"({bytes_ms:.4f} ms) and do {flops / 1e9:.3f} GFLOP ({flops_ms:.4f} ms): bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']}", flush=True)
+    print(f"ferrocene direct pass by part: {pass_ms:.3f} ms (runs {full}); kernel 3's template "
+          f"part on the class pairs with Lb, Lk <= 4 {lo:.3f} ms ({len(ks_lo)} launches, runs "
+          f"{lo_ms}), the f-shell class pairs {res['ms']:.3f} ms (old route {res['old_route_ms']:.3f} "
+          f"ms), digestion {pass_ms - lo - res['ms']:.3f} ms", flush=True)
+    rows = []
+    for i1, i2 in sorted({builder.batches[k][:2] for k in ks_hi}):
+        ks = [k for k in ks_hi if builder.batches[k][:2] == (i1, i2)]
+        ob = [b for b in old_batches if b[:2] == (i1, i2)]
+        ms = cuda_ms(lambda: values(ks), 3)
+        oms = cuda_ms(lambda: [ket_contract(eng.bra_batch(*b), eng._padded[i2][0], b[3],
+                                            metas[i2].tile) for b in ob], 3)
+        cb, cf = eng.values_kernel_work(pairs={(i1, i2)})
+        rows.append((ms, class_name(metas[i1], metas[i2]), len(ks), oms,
+                     max(cb / HBM_BYTES_PER_S, cf / FP64_FLOP_PER_S) * 1e3, cb, cf))
+    for ms, name, n, oms, bound, cb, cf in sorted(rows, reverse=True):
+        print(f"kernel 3 high-L class {name}: {ms:.4f} ms ({n} launches), old route {oms:.4f} ms, "
+              f"own bound {bound:.4f} ms ({cb / 1e9:.4f} GB, {cf / 1e9:.4f} GFLOP), time/bound "
+              f"{ms / bound:.1f}", flush=True)
+    if not res["ms"] <= res["old_route_ms"]:
+        fail("kernel 3's high-L part is slower than kernel 1's high-L part + ket_contract over the "
+             "same tiles")
     return res
 
 
@@ -1984,7 +2163,7 @@ def rank_view_phases(Q, naphthalene) -> None:
     direct J/K; the column builder's slabs, placed through colperm, are
     the mirrored V2f with every padding column unwritten; the pair
     builder's slabs are V2f's and W's columns in equal bits (3 ranks do
-    not divide M and raise)."""
+    not divide M: shares of unequal width)."""
     from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
     from qchem_rs_tpu_torch.ops.fock_pair import PairSpaceFockBuilder, PairSpaceShardedFockBuilder
     from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
@@ -2030,21 +2209,16 @@ def rank_view_phases(Q, naphthalene) -> None:
               f"{worst:.2e}; padding columns unwritten {unwritten}", flush=True)
         if worst > 1e-12 or not unwritten:
             fail(f"{size} column rank views do not reassemble V2f")
-    for r in range(4):
-        view = PairSpaceShardedFockBuilder(system, rank_view(4, r), 1e-12, engine=engine)
-        slab, Wc = view.prepare()
-        same = torch.equal(slab, V2f[:, view.cols]) and torch.equal(Wc, W[:, view.cols])
-        print(f"PairSpaceShardedFockBuilder rank {r} of 4: columns {view.cols.start}-"
-              f"{view.cols.stop}, V2f and W columns bits equal {same}", flush=True)
-        if not same:
-            fail("a pair rank view's slabs are not V2f's and W's columns")
-        del slab, Wc, view
-    try:
-        PairSpaceShardedFockBuilder(system, rank_view(3, 0), 1e-12, engine=engine)
-    except ValueError as e:
-        print(f"PairSpaceShardedFockBuilder, 3 rank views: {e}", flush=True)
-    else:
-        fail("the pair builder took 3 ranks, which do not divide M")
+    for size in (4, 3):  # 3 does not divide M: shares of unequal width
+        for r in range(size):
+            view = PairSpaceShardedFockBuilder(system, rank_view(size, r), 1e-12, engine=engine)
+            slab, Wc = view.prepare()
+            same = torch.equal(slab, V2f[:, view.cols]) and torch.equal(Wc, W[:, view.cols])
+            print(f"PairSpaceShardedFockBuilder rank {r} of {size}: columns {view.cols.start}-"
+                  f"{view.cols.stop}, V2f and W columns bits equal {same}", flush=True)
+            if not same:
+                fail("a pair rank view's slabs are not V2f's and W's columns")
+            del slab, Wc, view
 
 
 def cli_sweep(geoms: np.ndarray, energies: np.ndarray, chain: np.ndarray) -> None:
@@ -2089,19 +2263,21 @@ def main(argv: list[str]) -> int:
 
     # 1. build both kernels from the checkout's sources
     kernels = (eri_kernel.KERNEL, eri_kernel.HIGHL_KERNEL, eri_kernel.BOYS_PROBE,
-               eri_kernel.VALUES_KERNEL, fock_matvec.KERNEL)
+               eri_kernel.VALUES_KERNEL, eri_kernel.VALUES_HIGHL_KERNEL, fock_matvec.KERNEL)
     t0 = time.perf_counter()
     load_all(list(kernels))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(eri_kernel.KERNEL)
     print_ptxas(eri_kernel.HIGHL_KERNEL)
     print_ptxas(eri_kernel.VALUES_KERNEL)
+    print_ptxas(eri_kernel.VALUES_HIGHL_KERNEL)
     print_ptxas(fock_matvec.KERNEL)
 
     # 2. each kernel against its twin
     k1_abs, highl_abs = check_kernel1(eri_kernel, ncart)
     highl_abs = max(highl_abs, check_highl_shapes(eri_kernel, ncart))
     k3_abs = check_kernel3(eri_kernel, ncart)
+    k3h_abs = check_values_highl(eri_kernel, ncart)
     check_boys(eri_kernel)
     k2 = check_kernel2(fock_matvec)
 
@@ -2160,7 +2336,8 @@ def main(argv: list[str]) -> int:
     # 6. the scale path: naphthalene/cc-pVDZ through every Fock mode, the
     # kernels on its new paths, and UHF at BASELINE config 3
     named = {"eri_tile": eri_kernel.KERNEL, "eri_tile_highl": eri_kernel.HIGHL_KERNEL,
-             "eri_tile_values": eri_kernel.VALUES_KERNEL, "fock_matvec": fock_matvec.KERNEL}
+             "eri_tile_values": eri_kernel.VALUES_KERNEL,
+             "eri_tile_values_highl": eri_kernel.VALUES_HIGHL_KERNEL, "fock_matvec": fock_matvec.KERNEL}
     paths = {"rhf benzene incore huckel": dict(launches)}
     naph, pair_run = naphthalene_rhf(Q, named, paths)
     pair_kernel_numbers(naph, pair_run.density, fock_matvec)
@@ -2171,8 +2348,9 @@ def main(argv: list[str]) -> int:
     # high-L part
     naphthalene_spherical(Q, named, paths)
     uhf_spherical(Q, named, paths)
-    fc_system, fc_launches = ferrocene(Q, named, paths)
+    fc_system, fc_launches, fc_pair = ferrocene(Q, named, paths)
     hl = time_highl(fc_system, eri_kernel)
+    k3h = ferrocene_direct_numbers(fc_system, fc_pair.density, eri_kernel)
     zinc_atom(Q, named, paths)
 
     # 8. the SCF options at full size, MP2 in both ERI forms, the CLI
@@ -2254,6 +2432,18 @@ def main(argv: list[str]) -> int:
          "max_abs_err": max(k3_abs, k3["max_abs_err"]), "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "old_route_ms": k3["old_route_ms"]},
+        {"name": "tile_values_highl", "route": "cuda",
+         "source": "qchem_rs_tpu_torch/csrc/eri_tile_values_highl.cu",
+         "replaces": "qchem_rs_tpu/ops/eri_pallas.py:175 and :191 with the contractions of "
+                     "tile_vals_pallas :430 for L <= 8; beyond, the XLA f64 path of "
+                     "qchem_rs_tpu/ops/fock_stream.py:109-113",
+         "launches": paths["rhf ferrocene direct sad"]["eri_tile_values_highl"],
+         "launches_per_run": paths["rhf ferrocene direct sad"]["eri_tile_values_highl"],
+         "launches_per_pass": k3h["launches_per_pass"],
+         "max_abs_err": max(k3h_abs, k3h["max_abs_err"]), "ms": k3h["ms"],
+         "device_ms": k3h["device_ms"], "plain_ms": k3h["plain_ms"], "bound_ms": k3h["bound_ms"],
+         "bound_by": k3h["bound_by"], "library_ms": k3h["library_ms"],
+         "old_route_ms": k3h["old_route_ms"]},
         {"name": "fock_matvec", "route": "cuda",
          "source": "qchem_rs_tpu_torch/csrc/fock_matvec.cu",
          "replaces": "qchem_rs_tpu/ops/fock_matvec.py:82", "launches": launches["fock_matvec"],

@@ -62,9 +62,18 @@ def _convergence_metric(value: str) -> str:
             raise argparse.ArgumentTypeError(
                 f"bad composite guard in {value!r} (want composite:<float>)") from None
         return value
+    if value.startswith("espan"):
+        from qchem_rs_tpu_torch.models.scf import espan_params
+
+        try:
+            espan_params(value)
+        except (ValueError, IndexError) as e:
+            raise argparse.ArgumentTypeError(
+                f"bad espan metric {value!r} (want espan:<window>[:<guard>]): {e}") from None
+        return value
     raise argparse.ArgumentTypeError(
         f"unknown convergence metric {value!r} ({', '.join(CONVERGENCE_METRICS)}, "
-        "composite[:GUARD])"
+        "composite[:GUARD], espan:<W>[:<GUARD>])"
     )
 
 
@@ -572,7 +581,8 @@ def _common_flags(p: argparse.ArgumentParser, uhf: bool) -> None:
                        help="2S+1; 0 = reference-compatible n/2-n/2 split")
     p.add_argument("--convergence", type=_convergence_metric, default="diag_rms",
                    help="convergence metric: diag_rms (reference quirk), full_rms, energy, "
-                   "diis_err, composite[:GUARD]; a trailing 2 needs two passes below epsilon")
+                   "diis_err, composite[:GUARD], espan:<W>[:<GUARD>] (energy span of the last W "
+                   "passes); a trailing 2 needs two passes below epsilon")
     p.add_argument("--guess", choices=["huckel", "sad"], default="huckel",
                    help="initial density: huckel (rhf.rs:133-150) or sad (superposition of "
                    "atomic densities)")

@@ -1,9 +1,11 @@
 // The compile-time plan of the ERI tile kernels (csrc/eri_tile.cu, kernel 1's
-// template part, and csrc/eri_tile_values.cu, kernel 3): Hermite index
+// template part, and csrc/eri_tile_values.cu, kernel 3's; kernel 3's high-L
+// part, csrc/eri_tile_values_highl.cu, takes nherm and nth_set_bit): Hermite index
 // arithmetic, the downward R recursion of mcmurchie._r_plan unrolled through
 // integer sequences into constant indices, the (s1, s2) gather of
 // eri._r2_gather with its signs, the R of one primitive quartet, and the bra
-// Hermite->Cartesian contraction against one R table.
+// Hermite->Cartesian contraction against one R table; and nth_set_bit,
+// with which both parts of kernel 3 list a block's ket points.
 
 #pragma once
 
@@ -90,6 +92,24 @@ template <int LK, int S2>
 struct OddSign {  // sign[s2] of the gather is -1
   static constexpr bool v = odd_sign(LK, S2);
 };
+
+// position of the r-th (from 0) set bit of m, which has more than r
+__device__ __forceinline__ int nth_set_bit(unsigned m, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w /= 2) {
+    const unsigned low = m & ((1u << w) - 1u);
+    const int n = __popc(low);
+    if (r >= n) {
+      r -= n;
+      m >>= w;
+      pos += w;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
 
 // ---------------------------------------------------------------- R table
 

@@ -79,6 +79,7 @@ using qchem_eri::imax;
 using qchem_eri::imin;
 using qchem_eri::max_pair_comps;
 using qchem_eri::nherm;
+using qchem_eri::nth_set_bit;
 using qchem_eri::OddSign;
 using qchem_eri::quartet_r;
 using qchem_eri::RTab;
@@ -144,24 +145,6 @@ __device__ __forceinline__ void apply_sign(double (&W)[AC][nherm(LK)],
                                            std::integer_sequence<int, S2V...>) {
 #pragma unroll
   for (int j = 0; j < AC; ++j) ((W[j][S2V] = OddSign<LK, S2V>::v ? -W[j][S2V] : W[j][S2V]), ...);
-}
-
-// position of the r-th (from 0) set bit of m, which has more than r
-__device__ __forceinline__ int nth_set_bit(unsigned m, int r) {
-  int pos = 0;
-#pragma unroll
-  for (int w = 16; w >= 1; w /= 2) {
-    const unsigned low = m & ((1u << w) - 1u);
-    const int n = __popc(low);
-    if (r >= n) {
-      r -= n;
-      m >>= w;
-      pos += w;
-    } else {
-      m = low;
-    }
-  }
-  return pos;
 }
 
 // the ket contraction of one ket primitive: O += sign W . E2[col, ic], with

@@ -49,8 +49,8 @@ import numpy as np
 import torch
 
 from qchem_rs_tpu_torch.config import HartreeFockConfig
-from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles_plain
-from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, ket_contract
+from qchem_rs_tpu_torch.ops.eri_kernel import bra_tiles_plain, ket_contract
+from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.ops.fock_pair import pair_row_ao
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.utils.system import MolecularSystem

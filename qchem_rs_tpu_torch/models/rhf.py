@@ -93,6 +93,7 @@ def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, g_fn, D0=None) -> _S
     diis_min, diis_max = config.diis_window(4, 6)
     diis = Diis(diis_max, diis_min, n, H.device)
     metric = config.convergence_metric
+    espan = scf.EnergySpan(metric) if metric.startswith("espan") else None
     D = scf.huckel_guess(H, S, X, nocc, scale=2.0) if D0 is None else D0
     energy, rms, converged, passes = 0.0, math.inf, False, 0
     w = torch.zeros(n, dtype=H.dtype, device=H.device)
@@ -114,7 +115,10 @@ def _rhf_scf(H, X, S, nocc: int, config: HartreeFockConfig, g_fn, D0=None) -> _S
         new_rms = scf.convergence_value(
             metric, energy=new_energy, prev_energy=energy, err=err, d_change=d_change
         )
-        converged = scf.converged_flag(metric, new_rms, rms, config.epsilon)
+        if espan is None:
+            converged = scf.converged_flag(metric, new_rms, rms, config.epsilon)
+        else:
+            converged = espan.converged(new_energy, new_rms, config.epsilon)
         if config.verbose:
             print(f"iteration {passes:<4} - electronic energy {new_energy:1.4f}. "
                   f"density rms {new_rms:1.4e}")

@@ -98,13 +98,53 @@ def composite_guard(metric: str) -> float:
     return float(metric.split(":", 1)[1]) if ":" in metric else 1e-6
 
 
+#: longest energy window of the espan metric (the JAX package's loop state
+#: carries this many energies)
+ESPAN_HIST = 8
+
+
+def espan_params(metric: str) -> tuple[int, float]:
+    """(window, guard) of an "espan:<w>[:<guard>]" metric (port of
+    ``qchem_rs_tpu/models/scf.py::espan_params``): the stop on the span
+    (max - min) of the last <w> SCF energies, taken only once the diagonal
+    density RMS is below <guard> (default 1e-6). Window 4 by default; a
+    window outside 2..ESPAN_HIST raises ValueError, as does a part that is
+    not a number."""
+    parts = metric.split(":")
+    w = int(parts[1]) if len(parts) > 1 else 4
+    if not 2 <= w <= ESPAN_HIST:
+        raise ValueError(f"espan window {w} outside 2..{ESPAN_HIST}")
+    guard = float(parts[2]) if len(parts) > 2 else 1e-6
+    return w, guard
+
+
+class EnergySpan:
+    """The espan stop kept on the host, as the JAX package's host loop
+    keeps it (``qchem_rs_tpu/models/rhf.py:541-571``): the newest w
+    energies, this pass's included; the span is +inf until w energies
+    exist."""
+
+    def __init__(self, metric: str):
+        self.w, self.guard = espan_params(metric)
+        self.energies: list[float] = []
+
+    def converged(self, energy: float, diag_rms: float, epsilon: float) -> bool:
+        """Add this pass's energy; True when the span of the window is
+        below epsilon and ``diag_rms`` below the guard."""
+        self.energies.append(energy)
+        win = self.energies[-self.w:]
+        span = max(win) - min(win) if len(win) >= self.w else math.inf
+        return span < epsilon and diag_rms < self.guard
+
+
 def convergence_value(metric: str, *, energy: float, prev_energy: float,
                       err: torch.Tensor, d_change: torch.Tensor) -> float:
     """The scalar tested against epsilon: "energy" |dE|; "diis_err"
     max|FDS - SDF|; "composite[:<guard>]" |dE| gated to +inf until the
     diagonal density RMS is below <guard>; otherwise a density RMS. A
     trailing "2" (diag_rms2, full_rms2, diis_err2) names the same value with
-    the two-pass stop of ``converged_flag``."""
+    the two-pass stop of ``converged_flag``. For "espan" the diagonal
+    density RMS, which ``EnergySpan`` gates."""
     if metric == "energy":
         return abs(energy - prev_energy)
     if metric in ("diis_err", "diis_err2"):
@@ -113,7 +153,7 @@ def convergence_value(metric: str, *, energy: float, prev_energy: float,
         diag = float(density_rms(d_change, "diag_rms"))
         return abs(energy - prev_energy) if diag < composite_guard(metric) else math.inf
     if metric.startswith("espan"):
-        raise NotImplementedError("the espan metric is not ported")
+        return float(density_rms(d_change, "diag_rms"))
     return float(density_rms(d_change, metric.removesuffix("2")))
 
 

@@ -49,20 +49,28 @@ bra loop, storing them once; Boys runs without a division in any loop
 On CPU tensors ``bra_tiles`` runs the twin; on CUDA tensors it launches one
 of the two parts or raises.
 
-Kernel 3 (``tile_values``) computes the whole chain for the class pairs
-with Lb, Lk <= 4: both contractions, so that its (ntiles, T1*A, T2*C)
+Kernel 3 (``tile_values``) computes the whole chain for every class pair
+of the direct pass: both contractions, so that its (ntiles, T1*A, T2*C)
 result is ``ket_contract(bra_tiles(...))``, which is its twin
 (``tile_values_plain``). It replaces ``tile_vals_pallas``
 (``qchem_rs_tpu/ops/eri_pallas.py:430``, the Pallas bodies ``_kernel_fused``
-:175 and ``_kernel_htab`` :191 with the contractions in XLA) on the direct
-pass. Each real primitive quartet's R is built once and both contractions
-add into sums on chip; only the finished blocks are written. A block owns
-one bra pair of a tile: in the row kernel (class pairs whose alphas all fit
-one thread) its threads take the tile's real ket points, as kernel 1's do;
-in the shared kernel its threads build a round of R tables in shared memory
+:175 and ``_kernel_htab`` :191 with the contractions in XLA, and the XLA
+f64 path past L = 8) on the direct pass. Each real primitive quartet's R
+is built once and both contractions add into sums on chip; only the
+finished blocks are written. Like kernel 1 it has two parts. The template
+part, ``csrc/eri_tile_values.cu``, takes Lb, Lk <= 4; a block owns one bra
+pair of a tile: in the row kernel (class pairs whose alphas all fit one
+thread) its threads take the tile's real ket points, as kernel 1's do; in
+the shared kernel its threads build a round of R tables in shared memory
 for the owners of each ket pair's sums. Class pairs with d-d ket pairs are
 computed from their ket side and written transposed (``swap_sides``; notes
-in the source).
+in the source). The high-L part, ``csrc/eri_tile_values_highl.cu``, takes
+the f-shell class pairs (Lb or Lk of 5 or 6) with L at run time: a block
+owns a bra pair, a group of its tile's ket pairs and a chunk of its alphas
+(the launch shape: ``values_highl_schedule``), builds R tables level by
+level in shared memory as kernel 1's high-L part does, and adds each ket
+pair's values over its ket points in registers; it reads the ket class's E
+with its components last (``ket_layout``).
 """
 
 from __future__ import annotations
@@ -113,6 +121,13 @@ VALUES_KERNEL = CudaKernel(
     "eri_tile_values",
     [_c.c_int] * 11 + [_c.c_void_p] * 15,
     parts=BUILD_PARTS,
+)
+#: kernel 3's high-L part: class pairs with Lb or Lk of 5 or 6, L given at
+#: run time
+VALUES_HIGHL_KERNEL = CudaKernel(
+    "eri_tile_values_highl.cu",
+    "eri_tile_values_highl",
+    [_c.c_int] * 17 + [_c.c_void_p] * 13,
 )
 #: the kernels' Boys function on its own, for holding it against ``boys``
 BOYS_PROBE = CudaKernel(
@@ -309,6 +324,85 @@ def _device_plan(Lb: int, Lk: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(highl_plan(Lb, Lk), device=device)
 
 
+#: threads of a block of kernel 3's high-L part at most (its __launch_bounds__)
+VALUES_HIGHL_MAX_THREADS = 256
+#: shared-memory budgets of a block of kernel 3's high-L part in bytes: its R
+#: tables, its staged E1 rows, its chunk's bra sums and its values (a block
+#: takes more only when one item, primitive or ket point needs it)
+VALUES_HIGHL_BUDGETS = (32 << 10, 16 << 10, 32 << 10, 24 << 10)
+#: ket pairs of one block at most (a ket point mask of the kernel is 32 bits)
+VALUES_HIGHL_MAX_GROUP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ValuesHighlSchedule:
+    """The launch shape of kernel 3's high-L part for one class pair (seen
+    from the side it is computed from) and tile batch.
+
+    A block owns one bra pair (tile, t1), a group of G ket pairs of the
+    tile and a chunk of Ah alphas (ceil(T2 / G) * ceil(A / Ah) blocks per
+    bra pair), and every real ket point of its ket pairs, which it walks in
+    chunks of W. It holds R tables for NI (ket point, bra primitive) items
+    and E1 rows of KB bra primitives at once; with r ket points in its
+    chunk it walks its bra primitives in batches of max(1, min(KB, NI //
+    r)). NT threads."""
+
+    Ah: int
+    G: int
+    W: int
+    NI: int
+    KB: int
+    NT: int
+
+
+def values_highl_smem_bytes(Lb: int, Lk: int, c: int, C: int, sc: ValuesHighlSchedule) -> int:
+    """Dynamic shared memory of one block of kernel 3's high-L part under
+    ``sc``, in the layout of ``carve`` in ``csrc/eri_tile_values_highl.cu``,
+    rounded up to 16 bytes: doubles (staged E1 rows and the chunk's bra
+    sums, alphas padded to slices of 4; per item two R level buffers, Boys
+    base and PC; the block's values), then ints (plan levels, steps
+    and sign flags; the group's counts and list heads; per ket primitive a
+    mask and an offset; per chunk entry its pair, primitive and successor),
+    then the plan's gather as shorts. The launcher counts it again from the
+    same layout and refuses a launch whose count differs."""
+    L = Lb + Lk
+    H, H1, S1, S2 = nhermite(L), nhermite(L - 1), nhermite(Lb), nhermite(Lk)
+    A4 = -(-sc.Ah // 4) * 4
+    doubles = sc.KB * S1 * A4 + A4 * S2 * sc.W + (H + H1 + L + 1 + 3) * sc.NI + sc.Ah * sc.G * C
+    ints = L + 1 + H + S2 + 2 * sc.G + 2 * (c + 1) + 3 * sc.W
+    return -(-(8 * doubles + 4 * ints + 2 * S1 * S2) // 16) * 16
+
+
+@lru_cache(maxsize=None)
+def values_highl_schedule(Lb: int, Lk: int, a: int, c: int, A: int, C: int, T1: int, T2: int,
+                          ntiles: int, sms: int) -> ValuesHighlSchedule:
+    """The launch shape of kernel 3's high-L part for class pair (Lb, Lk),
+    seen from the side it is computed from, with a bra and c ket primitive
+    pairs, A bra and C ket components, tile edges T1, T2 and ``ntiles``
+    tiles, on a card of ``sms`` streaming multiprocessors: the values of G
+    ket pairs and Ah alphas fit their budget (all of a tile's ket pairs if
+    they can, else fewer, else fewer alphas), and a class pair with fewer
+    than two blocks per SM takes smaller alpha chunks (each chunk builds its
+    R tables again, a small share where A is large); within
+    ``VALUES_HIGHL_BUDGETS`` and ``VALUES_HIGHL_MAX_THREADS``."""
+    r_budget, e1_budget, acc_budget, out_budget = (b // 8 for b in VALUES_HIGHL_BUDGETS)  # doubles
+    L = Lb + Lk
+    S1, S2 = nhermite(Lb), nhermite(Lk)
+    G = max(1, min(T2, VALUES_HIGHL_MAX_GROUP, out_budget // (A * C)))
+    Ah = min(A, max(1, out_budget // (G * C)))
+    if Ah < A and Ah >= 4:
+        Ah -= Ah % 4
+    while ntiles * T1 * -(-T2 // G) * -(-A // Ah) < 2 * sms and Ah > 4:
+        Ah = -(-Ah // 8) * 4  # half, in slices of 4
+    NI = max(1, r_budget // (nhermite(L) + nhermite(L - 1) + L + 1 + 3))
+    W = max(1, min(G * c, 32, NI, acc_budget // (-(-Ah // 4) * 4 * S2)))
+    KB = max(1, min(a, NI, e1_budget // (S1 * -(-Ah // 4) * 4)))
+    NI = max(W, min(NI, W * KB))
+    work = max(W * S2 * -(-Ah // 4), Ah * G * C)  # bra slices, values
+    NT = min(VALUES_HIGHL_MAX_THREADS, max(64, -(-work // 32) * 32))
+    return ValuesHighlSchedule(Ah=Ah, G=G, W=W, NI=NI, KB=KB, NT=NT)
+
+
 def _tile_index(t: np.ndarray, T: int, device) -> torch.Tensor:
     """(ntiles, T) pair indices of the tiles starting at offsets ``t``."""
     return torch.as_tensor(t[:, None] + np.arange(T)[None, :], dtype=torch.long, device=device)
@@ -425,11 +519,7 @@ def bra_tiles(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
     out = torch.empty((nt, A, c * S2, T1, T2), dtype=torch.float64, device=dev)
     if nt == 0:
         return out
-    if offsets is None:
-        offsets = tuple(torch.from_numpy(np.stack([ti, tj]).astype(np.int32)).to(dev, non_blocking=True))
-    ti_d, tj_d = offsets
-    if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
-        raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
+    ti_d, tj_d = _offsets(ti, tj, offsets, dev)
     if ket is None:
         bra, ket = all_prims(N1, a, T1, dev), all_prims(p2.shape[0], c, T2, dev)
     ptrs = (E1.data_ptr(), p1.data_ptr(), P1.data_ptr(), p2.data_ptr(), P2.data_ptr(),
@@ -484,22 +574,49 @@ def swap_sides(Lb: int, Lk: int) -> bool:
     side that row is the block's E1, loaded once for all its threads.
     ``tools/values_trials.py`` times both sides of every naphthalene/cc-pVDZ
     class pair: the ket side wins for the d-d ket pairs and loses for the
-    ket classes of Lk = 3."""
+    ket classes of Lk = 3. The high-L part computes every class pair from
+    its bra side: ``tools/values_trials.py --highl`` times both sides of
+    every f-shell class pair of ferrocene/6-31G*, whose f-shell classes
+    come last and so are the ket side of nearly all of them."""
     return Lk == KERNEL_MAX_SIDE and Lb < Lk
 
 
+def _offsets(ti, tj, offsets, dev) -> tuple:
+    """The tile offsets as two int32 tensors on ``dev``: ``offsets`` when
+    given (checked), else ti and tj copied in one copy that does not wait
+    for the card's queue."""
+    nt = len(ti)
+    if offsets is None:
+        offsets = tuple(torch.from_numpy(np.stack([ti, tj]).astype(np.int32)).to(dev, non_blocking=True))
+    if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
+        raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
+    return offsets
+
+
+def ket_layout(E: torch.Tensor, highl: bool) -> torch.Tensor:
+    """A class's E (N, c, X, S) in the layout kernel 3 reads on its ket
+    side: pair axis last, (c, X, S, N), for the template part, so that
+    threads on consecutive ket pairs read together; components last, (N,
+    c, S, X), for the high-L part, so that threads on consecutive ket
+    components read together."""
+    return (E.transpose(2, 3) if highl else E.permute(1, 2, 3, 0)).contiguous()
+
+
 def tile_values(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra=None, ket=None,
-                offsets=None, E1t=None, E2t=None) -> torch.Tensor:
+                offsets=None, E1t=None, E2t=None, trans=None) -> torch.Tensor:
     """Finished ERI tile values, (ntiles, T1*A, T2*C) float64: rows (t1,
     alpha), columns (t2, gamma), as ``ket_contract`` of ``bra_tiles``.
 
     Arguments as ``bra_tiles``, with E2 (N2, c, C, S2) the ket class's
-    Hermite table; ``E1t`` and ``E2t`` may hold ``E.permute(1, 2, 3,
-    0).contiguous()`` of E1 and E2 for a caller that launches the same
-    classes again and again (the kernel reads the one of its ket side,
+    Hermite table; ``E1t`` and ``E2t`` may hold ``ket_layout`` of E1 and E2
+    for the part that the class pair takes, for a caller that launches the
+    same classes again and again (the kernel reads the one of its ket side,
     ``swap_sides``; without it the copy is made here). CPU tensors take the
-    twin; CUDA tensors launch kernel 3 (class pairs with Lb, Lk <= 4) or
-    raise."""
+    twin; CUDA tensors launch kernel 3: its template part for class pairs
+    with Lb, Lk <= 4, its high-L part for those with Lb or Lk of 5 or 6, in
+    the launch shape of ``values_highl_schedule`` and from the side
+    ``trans`` (``swap_sides`` when None; another side, to check or time
+    it, only for the high-L part)."""
     _check(Lb, Lk, E1, p1, P1, p2, P2, ti, tj, T1, T2, bra, ket)
     N2, c = p2.shape
     if E2.device != E1.device or E2.dtype != torch.float64 or not E2.is_contiguous():
@@ -511,35 +628,48 @@ def tile_values(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra=None, ket=No
         return tile_values_plain(Lb, Lk, E1, p1, P1, E2, p2, P2, ti, tj, T1, T2, bra, ket)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if max(Lb, Lk) > KERNEL_MAX_SIDE:
-        raise ValueError(f"kernel 3 takes Lb, Lk <= {KERNEL_MAX_SIDE}, got ({Lb}, {Lk})")
+    if max(Lb, Lk) > HIGHL_MAX_SIDE:
+        raise ValueError(f"kernel 3 takes Lb, Lk <= {HIGHL_MAX_SIDE}, got ({Lb}, {Lk})")
+    highl = max(Lb, Lk) > KERNEL_MAX_SIDE
+    if trans is not None and not highl:
+        raise ValueError(f"a side is chosen for the high-L part only, not ({Lb}, {Lk})")
     nt = len(ti)
     out = torch.empty((nt, T1 * E1.shape[2], T2 * E2.shape[2]), dtype=torch.float64, device=dev)
     if nt == 0:
         return out
-    if offsets is None:
-        offsets = tuple(torch.from_numpy(np.stack([ti, tj]).astype(np.int32)).to(dev, non_blocking=True))
-    if any(t.device != dev or t.dtype != torch.int32 or t.shape != (nt,) for t in offsets):
-        raise ValueError(f"offsets must be two int32 tensors of shape ({nt},) on {dev}")
+    offsets = _offsets(ti, tj, offsets, dev)
     if ket is None:
         bra, ket = all_prims(E1.shape[0], E1.shape[1], T1, dev), all_prims(N2, c, T2, dev)
     sides = [(Lb, E1, p1, P1, offsets[0], T1, bra, E1t), (Lk, E2, p2, P2, offsets[1], T2, ket, E2t)]
-    trans = swap_sides(Lb, Lk)
+    trans = swap_sides(Lb, Lk) if trans is None else bool(trans)
     if trans:  # the transposed blocks, the class pair seen from its ket side
         sides.reverse()
         if bra.T != T1 or (np.asarray(ti) % T1).any():
             raise ValueError(f"bra tiles must start at multiples of T1={T1}, with counts for T1")
     (Lx, Ex, px, Px, tx, Tx, nx, _), (Ly, Ey, py, Py, ty, Ty, ny, Eyt) = sides
+    a, A, (N2y, cy, Cy, Sy) = Ex.shape[1], Ex.shape[2], Ey.shape
     if Eyt is None:
-        Eyt = Ey.permute(1, 2, 3, 0).contiguous()
-    elif Eyt.shape != Ey.shape[1:] + Ey.shape[:1] or not Eyt.is_contiguous() or Eyt.device != dev:
-        raise ValueError("E1t and E2t must be E.permute(1, 2, 3, 0), contiguous, on E1's device")
+        Eyt = ket_layout(Ey, highl)
+    elif (Eyt.shape != ((N2y, cy, Sy, Cy) if highl else (cy, Cy, Sy, N2y)) or not Eyt.is_contiguous()
+          or Eyt.device != dev):
+        raise ValueError("E1t and E2t must be ket_layout(E) of their class, contiguous, on E1's device")
     with torch.cuda.device(dev):
-        VALUES_KERNEL.launch(Lx, Ly, Ex.shape[1], Ey.shape[1], Ex.shape[2], Ey.shape[2], Tx, Ty, nt,
-                             Ey.shape[0], int(trans), Ex.data_ptr(), px.data_ptr(), Px.data_ptr(),
-                             Eyt.data_ptr(), py.data_ptr(), Py.data_ptr(), tx.data_ptr(),
-                             ty.data_ptr(), nx.n.data_ptr(), ny.n.data_ptr(), ny.order.data_ptr(),
-                             ny.nreal.data_ptr(), ny.pos.data_ptr(), out.data_ptr(), stream_of(out))
+        if highl:
+            sc = values_highl_schedule(Lx, Ly, a, cy, A, Cy, Tx, Ty, nt, _sm_count(dev))
+            VALUES_HIGHL_KERNEL.launch(Lx, Ly, a, cy, A, Cy, Tx, Ty, nt, int(trans), sc.Ah, sc.G,
+                                       sc.W, sc.NI, sc.KB, sc.NT,
+                                       values_highl_smem_bytes(Lx, Ly, cy, Cy, sc), Ex.data_ptr(),
+                                       px.data_ptr(), Px.data_ptr(), Eyt.data_ptr(), py.data_ptr(),
+                                       Py.data_ptr(), tx.data_ptr(), ty.data_ptr(),
+                                       nx.n.data_ptr(), ny.n.data_ptr(),
+                                       _device_plan(Lx, Ly, dev).data_ptr(), out.data_ptr(),
+                                       stream_of(out))
+            return out
+        VALUES_KERNEL.launch(Lx, Ly, a, cy, A, Cy, Tx, Ty, nt, N2y, int(trans), Ex.data_ptr(),
+                             px.data_ptr(), Px.data_ptr(), Eyt.data_ptr(), py.data_ptr(),
+                             Py.data_ptr(), tx.data_ptr(), ty.data_ptr(), nx.n.data_ptr(),
+                             ny.n.data_ptr(), ny.order.data_ptr(), ny.nreal.data_ptr(),
+                             ny.pos.data_ptr(), out.data_ptr(), stream_of(out))
     return out
 
 

@@ -37,7 +37,8 @@ import torch
 from qchem_rs_tpu_torch.ops.angular import ncart
 from qchem_rs_tpu_torch.ops.eri import PairGroup, build_pair_groups
 from qchem_rs_tpu_torch.ops.eri_kernel import (KERNEL_MAX_SIDE, bra_tiles, compact_order, compact_prims,
-                                               ket_contract, prim_counts, tile_values, tile_values_plain)
+                                               ket_contract, ket_layout, prim_counts, tile_values,
+                                               tile_values_plain)
 from qchem_rs_tpu_torch.ops.fock import schwarz_bounds
 from qchem_rs_tpu_torch.ops.mcmurchie import nhermite
 from qchem_rs_tpu_torch.ops.spherical import cart_to_sph, nsph
@@ -284,6 +285,8 @@ class TiledEriEngine:
         self._padded = [compact_prims(*t, perm) for t, perm in zip(padded, self._prim_orders)]
         #: kernel 1's primitive counts per class
         self._counts = [prim_counts(E, m.tile) for (E, _, _), m in zip(self._padded, metas)]
+        #: each class's E in kernel 3's ket-side layouts, made at first use
+        self._ket_layouts: dict = {}
         #: (i1, i2, ti, tj) per class pair with at least one kept tile
         self._tasks = []
         for i1, m1 in enumerate(metas):
@@ -316,15 +319,15 @@ class TiledEriEngine:
         """Tiles of class pair (i1, i2) in one kernel call, so that one
         batch stays under BATCH_BYTES: sized for the twin's R tables when
         ``twin`` (by default on the CPU), else for the kernel's output:
-        kernel 3's finished blocks when ``values`` and Lb, Lk <= 4, kernel
-        1's bra-contracted tiles otherwise."""
+        kernel 3's finished blocks when ``values`` (both of its parts),
+        kernel 1's bra-contracted tiles otherwise."""
         m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
         twin = self.device.type != "cuda" if twin is None else twin
         Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
         S1, S2 = nhermite(Lb), nhermite(Lk)
         if twin:  # doubles per pair quartet of a tile
             per_pair = m1.a * m2.a * (2 * nhermite(Lb + Lk) + 2 * S1 * S2)
-        elif values and max(Lb, Lk) <= KERNEL_MAX_SIDE:
+        elif values:
             per_pair = m1.A * m2.A
         else:
             per_pair = m1.A * m2.a * S2
@@ -348,20 +351,24 @@ class TiledEriEngine:
         return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, p2, P2, ti, tj, m1.tile, m2.tile,
                   self._counts[i1], self._counts[i2], offsets)
 
-    @functools.cached_property
-    def _pair_last(self) -> list:
-        """Each class's E with the pair axis last, (c, C, S, N), as kernel
-        3 reads the class on its ket side."""
-        return [E.permute(1, 2, 3, 0).contiguous() for E, _, _ in self._padded]
+    def _ket_layout(self, i: int, highl: bool) -> torch.Tensor:
+        """Class i's E as kernel 3's template part (``highl`` False) or
+        high-L part reads a class on its ket side (``ket_layout``), made
+        once."""
+        if (i, highl) not in self._ket_layouts:
+            self._ket_layouts[i, highl] = ket_layout(self._padded[i][0], highl)
+        return self._ket_layouts[i, highl]
 
     def values_batch(self, i1, i2, ti, tj, fn=tile_values, offsets=None) -> torch.Tensor:
         """Kernel 3 (or ``fn``, e.g. ``tile_values_plain``) on one batch of
-        tiles of class pair (i1, i2): the (nt, T1*A, T2*C) blocks;
+        tiles of any class pair (i1, i2): the (nt, T1*A, T2*C) blocks;
         ``offsets`` as ``tile_values`` takes them."""
         m1, m2 = self.layout.metas[i1], self.layout.metas[i2]
         E1, p1, P1 = self._padded[i1]
         E2, p2, P2 = self._padded[i2]
-        kw = {"E1t": self._pair_last[i1], "E2t": self._pair_last[i2]} if fn is tile_values else {}
+        highl = max(m1.la + m1.lb, m2.la + m2.lb) > KERNEL_MAX_SIDE
+        kw = ({"E1t": self._ket_layout(i1, highl), "E2t": self._ket_layout(i2, highl)}
+              if fn is tile_values else {})
         return fn(m1.la + m1.lb, m2.la + m2.lb, E1, p1, P1, E2, p2, P2, ti, tj, m1.tile, m2.tile,
                   self._counts[i1], self._counts[i2], offsets, **kw)
 

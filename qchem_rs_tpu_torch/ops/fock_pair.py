@@ -240,35 +240,35 @@ class PairSpaceShardedFockBuilder(ShardedPairJK, PairSpaceFockBuilder):
     ``qchem_rs_tpu/ops/fock_pair.py:362-414``).
 
         builder = PairSpaceShardedFockBuilder(system, mesh, 1e-12)
-        V2f_cols, W_cols = builder.prepare()   # (M, M/ndev), (nao^2, M/ndev)
+        V2f_cols, W_cols = builder.prepare()   # (M, w), (nao^2, w), w ~ M/ndev
         J, K = builder.jk(D)                   # local products, one all_reduce each
 
     Each rank keeps its column slab of the mirrored V2f and its columns of
-    W, ``cols`` = the rank's contiguous M/ndev columns, so the pair
-    matrices take 1/ndev of the memory on each device. Every rank builds
-    the whole V2 (kernel 1) and mirrors it, builds only its own W and V2f
-    columns from it, and frees it: the build's peak is the whole (M, M)
-    V2 on every device, as the JAX package's is on its default device
-    (its "single-device high-water mark"; ``ColumnShardedPairFockBuilder``
-    has none). J_local = V2f[:, cols] @ dJ[cols] and K_local =
-    W[:, cols] @ dK[cols] are plain ``torch.mv`` products (kernel 2 reads
-    a symmetric matrix, which a slab is not), then one ``all_reduce``
-    each. No lean form: W's columns are kept (the lean trade is a
-    one-device concern). M must divide by the mesh size, as in the JAX
-    package, whose pair counts are multiples of 8; the port's are not
-    (water/STO-3G has M = 37), so the mesh sizes that divide M are the
-    ones it runs on.
+    W, ``cols`` = the rank's contiguous share of the M columns
+    (``Mesh.share``: the first M % ndev ranks take one column more), so
+    the pair matrices take about 1/ndev of the memory on each device.
+    Every rank builds the whole V2 (kernel 1) and mirrors it, builds only
+    its own W and V2f columns from it, and frees it: the build's peak is
+    the whole (M, M) V2 on every device, as the JAX package's is on its
+    default device (its "single-device high-water mark";
+    ``ColumnShardedPairFockBuilder`` has none). J_local = V2f[:, cols] @
+    dJ[cols] and K_local = W[:, cols] @ dK[cols] are plain ``torch.mv``
+    products (kernel 2 reads a symmetric matrix, which a slab is not),
+    then one ``all_reduce`` each; no collective needs equal slabs. No lean
+    form: W's columns are kept (the lean trade is a one-device concern).
+    The JAX package pads its pair counts to multiples of 8 so that its
+    meshes divide M; the port's unequal shares need no padding and run on
+    any mesh of at most M ranks.
     """
 
     def __init__(self, system: MolecularSystem, mesh, threshold: float = 1e-12, *,
                  engine: TiledEriEngine | None = None):
         super().__init__(system, threshold, device=mesh.device, engine=engine, lean=False)
-        if self.M % mesh.size:
-            raise ValueError(f"pair count M={self.M} not divisible by the mesh size {mesh.size}")
+        if mesh.size > self.M:
+            raise ValueError(f"a mesh of {mesh.size} ranks is larger than the pair count M={self.M}")
         self.mesh = mesh
-        width = self.M // mesh.size
         #: this rank's columns of V2f and W
-        self.cols = slice(mesh.rank * width, (mesh.rank + 1) * width)
+        self.cols = mesh.share(self.M)
         self._slab = None
 
     def _v2f(self) -> torch.Tensor:

@@ -7,9 +7,9 @@ batches sized for the values) and digests each batch of (nt, T1*A, T2*C)
 tile values into J and K at once, for a stack of nd densities (nd = 2
 digests both UHF spins against one pass). Kernel 3
 (``eri_kernel.tile_values``, the counterpart of the JAX package's
-``tile_vals_pallas``) gives the values of the class pairs with Lb, Lk <= 4
-in one launch a batch; the f-shell class pairs take kernel 1's high-L part
-and the ket contraction (``ket_contract``).
+``tile_vals_pallas``) gives the values of every class pair in one launch a
+batch: its template part those with Lb, Lk <= 4, its high-L part the
+f-shell class pairs.
 
 Coverage: tasks hold class pairs i1 <= i2 and, within a class, the square
 tiles on and above the diagonal. Every block is digested as itself and as
@@ -67,7 +67,6 @@ import torch
 import torch.nn.functional as F
 
 from qchem_rs_tpu_torch.ops.angular import ncart
-from qchem_rs_tpu_torch.ops.eri_kernel import KERNEL_MAX_SIDE, ket_contract
 from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine
 from qchem_rs_tpu_torch.ops.fock_pair import in_working_basis, pair_weights
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
@@ -151,16 +150,9 @@ class StreamingFockBuilder:
         self._offsets = [(i64(ti), i64(tj), (i32(ti), i32(tj))) for _, _, ti, tj in batches]
 
     def tile_values(self, k: int) -> torch.Tensor:
-        """The (nt, T1*A, T2*C) V2 blocks of batch ``k``: kernel 3, or for
-        an f-shell class pair kernel 1's high-L part and the ket
-        contraction."""
+        """The (nt, T1*A, T2*C) V2 blocks of batch ``k`` (kernel 3)."""
         i1, i2, ti, tj = self.batches[k]
-        eng, (_, tj_d, offsets) = self.engine, self._offsets[k]
-        m1, m2 = eng.layout.metas[i1], eng.layout.metas[i2]
-        if max(m1.la + m1.lb, m2.la + m2.lb) <= KERNEL_MAX_SIDE:
-            return eng.values_batch(i1, i2, ti, tj, offsets=offsets)
-        return ket_contract(eng.bra_batch(i1, i2, ti, tj, offsets=offsets), eng._padded[i2][0], tj_d,
-                            m2.tile)
+        return self.engine.values_batch(i1, i2, ti, tj, offsets=self._offsets[k][2])
 
     def _digest(self, i1, i2, ti_d, tj_d, vals, D, dJ, Jp, K1) -> None:
         """Add one batch's tile values (halved in place on diagonal tiles

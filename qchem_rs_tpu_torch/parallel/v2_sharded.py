@@ -46,7 +46,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, _tile_flops, ket_contract
+from qchem_rs_tpu_torch.ops.eri_kernel import ket_contract
+from qchem_rs_tpu_torch.ops.eri_tiled import TiledEriEngine, _tile_flops
 from qchem_rs_tpu_torch.ops.fock_pair import ShardedPairJK, pair_row_ao
 from qchem_rs_tpu_torch.utils.system import MolecularSystem
 

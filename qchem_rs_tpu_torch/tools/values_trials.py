@@ -1,15 +1,18 @@
 """Side trials of kernel 3 (the direct pass's tile values) on one CUDA card.
 
 Builds the naphthalene/cc-pVDZ direct builder (the system whose direct pass
-``chip_smoke.py`` times) and, for every class pair of its pass, times kernel
-3 over the pass's batches as ``eri_kernel.swap_sides`` routes it and from
-the other side (the transposed blocks from the ket side, or the blocks from
-the bra side), after holding the other side's output against the routed
-one's, beside the old route over the same tiles (kernel 1 in its own
-batches, then ``ket_contract``) and the class pair's bound
-(``values_kernel_work``). Prints the card's name and power limit first.
+``chip_smoke.py`` times; with ``--highl``, ferrocene/6-31G* and only its
+f-shell class pairs, which take kernel 3's high-L part) and, for every
+class pair of its pass, times kernel 3 over the pass's batches as
+``eri_kernel.swap_sides`` routes it and from the other side (the transposed
+blocks from the ket side, or the blocks from the bra side), after holding
+the other side's output against the routed one's, beside the old route
+over the same tiles (kernel 1 in its own batches, then ``ket_contract``)
+and the class pair's bound (``values_kernel_work``). Prints the card's name
+and power limit first.
 
-    python -m qchem_rs_tpu_torch.tools.values_trials    # one CUDA card; about a minute
+    python -m qchem_rs_tpu_torch.tools.values_trials           # one CUDA card; about a minute
+    python -m qchem_rs_tpu_torch.tools.values_trials --highl   # the same on ferrocene's f shells
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def events_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("values_trials: CUDA is not available; this tool needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -55,10 +58,13 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
-    load_all([eri_kernel.KERNEL, eri_kernel.VALUES_KERNEL])
+    highl = "--highl" in argv
+    load_all([eri_kernel.KERNEL, eri_kernel.HIGHL_KERNEL, eri_kernel.VALUES_KERNEL,
+              eri_kernel.VALUES_HIGHL_KERNEL])
     data = os.path.join(ROOT, "data")
-    system = MolecularSystem.load(os.path.join(data, "mol", "naphthalene.json"),
-                                  BasisSet.load(os.path.join(data, "basis", "cc-pVDZ.json")))
+    mol, basis = ("ferrocene", "6-31G_st") if highl else ("naphthalene", "cc-pVDZ")
+    system = MolecularSystem.load(os.path.join(data, "mol", f"{mol}.json"),
+                                  BasisSet.load(os.path.join(data, "basis", f"{basis}.json")))
     builder = StreamingFockBuilder(system, 1e-12, device="cuda")
     eng = builder.engine
     metas = eng.layout.metas
@@ -68,6 +74,8 @@ def main() -> int:
     for i1, i2 in sorted({b[:2] for b in builder.batches}):
         m1, m2 = metas[i1], metas[i2]
         Lb, Lk = m1.la + m1.lb, m2.la + m2.lb
+        if highl and max(Lb, Lk) <= eri_kernel.KERNEL_MAX_SIDE:
+            continue
         ks = [k for k, b in enumerate(builder.batches) if b[:2] == (i1, i2)]
         ob = [b for b in old_batches if b[:2] == (i1, i2)]
 
@@ -107,4 +115,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain twins on the card
-(kernel 3, the direct pass's tile values, for all 25 (Lb, Lk) <= (4, 4)),
+(kernel 3, the direct pass's tile values, for all 25 (Lb, Lk) <= (4, 4),
+and its high-L part for the 24 class pairs with a side of 5 or 6),
 the port's RHF through them, bitwise repeats (kernel 2, the direct build's
 J and K, whole RHF runs in each Fock mode, and CCSD(T)), MP2 and CCSD(T)
 on the card against the port on the CPU, a closed-shell CCSD step and
@@ -198,6 +199,33 @@ def test_tile_values_kernel_twice_is_bitwise_equal(cuda, Lb, Lk):
     ti, tj = np.array([0, 32, 32]), np.array([32, 0, 32])
     out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, 32, 32, bra, ket)
     assert torch.equal(out, eri_kernel.tile_values(Lb, Lk, *args, ti, tj, 32, 32, bra, ket))
+
+
+#: every class pair of kernel 3's high-L part: a side of 5 or 6
+VALUES_HIGHL_CLASSES = [(lb, lk) for lb in range(7) for lk in range(7) if max(lb, lk) > 4]
+
+
+@pytest.mark.parametrize("Lb,Lk", VALUES_HIGHL_CLASSES)
+def test_tile_values_highl_ragged_counts_match_twin(cuda, Lb, Lk):
+    # kernel 3's high-L part against its twin with ragged counts, at the
+    # largest tile edge and with ket tiles of one pair and a third of the
+    # bra rows without a real primitive pair, from both sides; relaunched,
+    # the same bits (a fixed summation order, no atomics)
+    rng = np.random.default_rng(700 + Lb * 7 + Lk)
+    prims = [9, 4, 3, 2, 1, 2, 1]
+    for which, (T1, T2, zero_rows) in enumerate(((32, 32, 1), (16, 1, 11))):
+        args, bra, ket = _ragged_values_classes(rng, Lb, Lk, prims[Lb], prims[Lk], T1, T2, cuda,
+                                                which, zero_rows)
+        ti, tj = np.array([0, T1, T1, 0]), np.array([T2, 0, T2, 0])
+        ref = eri_kernel.tile_values_plain(Lb, Lk, *args, ti, tj, T1, T2, bra, ket)
+        for trans in (False, True):
+            before = eri_kernel.VALUES_HIGHL_KERNEL.launches
+            out = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket, trans=trans)
+            again = eri_kernel.tile_values(Lb, Lk, *args, ti, tj, T1, T2, bra, ket, trans=trans)
+            torch.cuda.synchronize()
+            assert eri_kernel.VALUES_HIGHL_KERNEL.launches == before + 2
+            assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
+            assert torch.equal(out, again)
 
 
 def test_kernel_boys_matches_boys(cuda):

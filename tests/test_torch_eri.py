@@ -24,10 +24,10 @@ from qchem_rs_tpu.utils.basis import BasisSet as JaxBasisSet
 from qchem_rs_tpu.utils.system import MolecularSystem as JaxSystem
 from qchem_rs_tpu_torch.ops import eri_kernel, eri_tiled, fock_matvec
 from qchem_rs_tpu_torch.ops.angular import ncart
+from qchem_rs_tpu_torch.ops.eri_kernel import ket_contract
 from qchem_rs_tpu_torch.ops.eri_tiled import (
     TiledEriEngine,
     _tile_vals,
-    ket_contract,
     mirror_inplace,
     pad_group,
 )
@@ -650,15 +650,51 @@ def _tiny_f_systems():
     return JaxSystem([JaxAtom(8, x) for x in pos], jb), MolecularSystem([Atom(8, x) for x in pos], pb)
 
 
-def test_f_shell_eri_matches_jax():
-    # every class pair up to (ff|ff) through the twin and the port's pair
-    # space against the JAX engine's (its XLA f64 path beyond L = 8);
-    # about 10 s of JAX compiling on one core
+@pytest.fixture(scope="module")
+def f_shell_jax_eri():
+    """The JAX engine's (ij|kl) of ``_tiny_f_systems`` (its XLA f64 path
+    beyond L = 8; about 10 s of JAX compiling on one core), and the port's
+    system."""
     jax_sys, port_sys = _tiny_f_systems()
     jeng = JaxEngine(jax_sys, 0.0)
-    ref = np.asarray(jeng.finish_eri(jeng.build()))
+    return np.asarray(jeng.finish_eri(jeng.build())), port_sys
+
+
+def test_f_shell_eri_matches_jax(f_shell_jax_eri):
+    # every class pair up to (ff|ff) through the twin and the port's pair
+    # space against the JAX engine's
+    ref, port_sys = f_shell_jax_eri
     eng = TiledEriEngine(port_sys, 0.0, device="cpu")
     assert max(m.la + m.lb for m in eng.layout.metas) == 6
     out = eng.finish_eri(eng.build()).numpy()
     assert out.shape == ref.shape == (22,) * 4
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) <= 1e-12
+
+
+def test_f_shell_direct_jk_matches_jax(f_shell_jax_eri):
+    # the direct pass on the CPU for class pairs up to (ff|ff): every batch
+    # goes through the engine's values_batch (kernel 3's twin here, its
+    # high-L part on the card), none through kernel 1; J and K of a random
+    # symmetric density against J and K contracted in numpy from the JAX
+    # engine's (ij|kl), to 1e-11 relative (sums in another order)
+    from qchem_rs_tpu_torch.ops.fock_stream import StreamingFockBuilder
+
+    ref, port_sys = f_shell_jax_eri
+    n = ref.shape[0]
+    D = np.random.default_rng(11).standard_normal((n, n))
+    D = D + D.T
+    J_ref = np.einsum("ijkl,kl->ij", ref, D)
+    K_ref = np.einsum("ikjl,kl->ij", ref, D)
+    builder = StreamingFockBuilder(port_sys, 0.0, device="cpu")
+    eng = builder.engine
+    calls = []
+    values_batch = eng.values_batch
+    eng.values_batch = lambda *a, **k: calls.append(a[:2]) or values_batch(*a, **k)
+    eng.bra_batch = None  # the direct pass has one route
+    metas = eng.layout.metas
+    assert any(max(metas[i1].la + metas[i1].lb, metas[i2].la + metas[i2].lb) > 4
+               for i1, i2, _, _ in builder.batches)
+    J, K = builder.jk(torch.tensor(D))
+    assert calls == [b[:2] for b in builder.batches]
+    assert np.abs(J.numpy() - J_ref).max() <= 1e-11 * np.abs(J_ref).max()
+    assert np.abs(K.numpy() - K_ref).max() <= 1e-11 * np.abs(K_ref).max()

@@ -2,6 +2,7 @@
 (every kernel through its plain twin) against the JAX package's
 ``restricted_hartree_fock``, against fixed anchors, and through its CLI."""
 
+import argparse
 import os
 import re
 
@@ -194,3 +195,51 @@ def test_rhf_defaults_to_cuda_and_raises_without_it():
         pytest.skip("this machine has CUDA; the test covers the machine without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         restricted_hartree_fock(_port_system("hydrogen", "STO-3G"), HartreeFockConfig())
+
+
+@pytest.mark.parametrize("mode", ["incore", "direct"])
+def test_espan_rhf_matches_jax_water_sto3g(water_sto3g, mode):
+    # the energy-span stop (window 4, guard 1e-6 on diag_rms) kept on the
+    # host: the JAX in-core run's iteration count and, to 1e-10, its energy
+    # (the two runs agree to ~1e-13 Eh pass by pass, far inside the span
+    # epsilon of 1e-10, so they stop at the same pass)
+    jax_sys, _, _ = water_sto3g
+    ref = jax_rhf(jax_sys, JaxConfig(epsilon=1e-10, convergence_metric="espan:4"))
+    out = restricted_hartree_fock(
+        _port_system("water", "STO-3G"),
+        HartreeFockConfig(epsilon=1e-10, convergence_metric="espan:4", fock_mode=mode),
+        device="cpu")
+    assert ref.converged and out.converged
+    assert out.iterations == ref.iterations
+    assert abs(out.total_energy() - ref.total_energy()) <= 1e-10
+
+
+def test_espan_window_and_cli(capsys):
+    """A window outside 2..8 raises in the config; the port's and the JAX
+    CLI's --convergence types accept and reject the same values, with the
+    same espan messages; the CLI's rhf runs the rule and prints the
+    in-process energy."""
+    from qchem_rs_tpu import cli as jax_cli
+
+    system = _port_system("water", "STO-3G")
+    with pytest.raises(ValueError, match="espan window 9 outside 2..8"):
+        restricted_hartree_fock(system, HartreeFockConfig(convergence_metric="espan:9"),
+                                device="cpu")
+    for value in ("espan", "espan:2", "espan:8:1e-8", "espan:1", "espan:9", "espan:x",
+                  "espan:4:y", "espan:", "diag_rms", "composite:1e-7", "energy2"):
+        outcome = []
+        for parse in (jax_cli._convergence_metric, cli._convergence_metric):
+            try:
+                outcome.append(parse(value))
+            except argparse.ArgumentTypeError as e:  # the espan messages match too
+                outcome.append(("rejected", str(e) if value.startswith("espan") else None))
+        assert outcome[0] == outcome[1], value
+    out = restricted_hartree_fock(
+        system, HartreeFockConfig(epsilon=1e-10, convergence_metric="espan:4"), device="cpu")
+    rc = cli.main(["rhf", "-b", os.path.join(DATA, "basis", "STO-3G.json"),
+                   "-m", os.path.join(DATA, "mol", "water.json"), "--device", "cpu",
+                   "--convergence", "espan:4", "--epsilon", "1e-10"])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0
+    assert lines[0].startswith(f"hartree fock converged after {out.iterations} iterations")
+    assert lines[3] == f"hartree fock energy: {out.total_energy():.3f}"

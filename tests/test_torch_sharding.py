@@ -3,10 +3,10 @@
 ``ColumnShardedPairFockBuilder`` against the JAX builders of the same name
 on the 8-way virtual CPU mesh (``data_mesh(8, axis="q")``). The port's
 side runs as rank views of 1, 3 and 8 ranks in one process, their
-``jk_partial`` shares added in rank order; ``PairSpaceShardedFockBuilder``
-needs the mesh size to divide the pair count M, which the port's layout
-makes 37 for water/STO-3G and 228 for methane/3-21G, so it runs where the
-size divides M and raises where it does not."""
+``jk_partial`` shares added in rank order. ``PairSpaceShardedFockBuilder``
+gives each rank a contiguous share of the pair count M (37 for
+water/STO-3G and 228 for methane/3-21G in the port's layout, which 3 and
+8 do not divide) and raises only for a mesh of more than M ranks."""
 
 import os
 
@@ -99,7 +99,7 @@ def _summed(views, D):
 
 PARITY = [(kind, name, size) for kind in ("stream", "column") for name in ("water-sto3g",)
           for size in (1, 3, 8)]
-PARITY += [("pair", "water-sto3g", 1)]
+PARITY += [("pair", "water-sto3g", size) for size in (1, 3, 8)] + [("pair", "methane-321g", 8)]
 
 
 @pytest.mark.parametrize("kind,name,size", PARITY, ids=[f"{k}-{n}-{s}" for k, n, s in PARITY])
@@ -129,10 +129,11 @@ def test_rank_view_jk_raises(kind):
         builder.jk(torch.eye(builder.system.n_basis(), dtype=torch.float64))
 
 
-@pytest.mark.parametrize("name,size", [("water-sto3g", 3), ("water-sto3g", 8),
-                                       ("methane-321g", 8)])
+@pytest.mark.parametrize("name,size", [("water-sto3g", 38)])
 def test_pair_sharded_needs_the_mesh_size_to_divide_m(name, size):
-    with pytest.raises(ValueError, match="not divisible"):
+    # the shares are unequal where the mesh size does not divide M (the
+    # PARITY cases), but every rank needs at least one of the M columns
+    with pytest.raises(ValueError, match="larger than the pair count M=37"):
         PairSpaceShardedFockBuilder(_system(name), rank_view(size, 0, "cpu"), THRESHOLD)
 
 
