@@ -1,0 +1,5 @@
+"""torch.cuda.max_memory_allocated() over the window, in 1e9 bytes."""
+
+
+def read(run):
+    return run.peak_bytes / 1e9
